@@ -1,0 +1,69 @@
+"""Move parameter trees between the JAX package and the port.
+
+The JAX package's ``init_params`` returns a nested dict of arrays with the
+layers stacked on axis 0 (``blocks/attn/wq`` is (L, d, H, hd)) and ``None``
+for absent norm parameters (olmo's ``ln1``, ``ln2`` and ``final_norm``).
+The port keeps the same tree: the same keys in the same order, the same
+``None`` leaves, the same shapes, with tensors for arrays.  Numpy sits in
+between, so this module imports neither JAX nor anything of ``repro``:
+the caller turns the JAX tree into numpy first
+(``jax.tree_util.tree_map(np.asarray, params)``).
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.model import check_dense
+
+
+def _to_tensor(arr, device, dtype) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes' bf16: widen, exactly
+        t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr.copy())  # JAX's arrays are read-only
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def _map(tree: Any, fn) -> Any:
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {key: _map(val, fn) for key, val in tree.items()}
+    return fn(tree)
+
+
+def params_from_jax(tree: dict, cfg: ModelConfig, device="cpu",
+                    dtype: Optional[torch.dtype] = None) -> dict:
+    """The port's parameter tree from a JAX tree of numpy arrays.
+
+    Values are copied bit for bit; ``dtype``, when given, casts every leaf
+    (the port may store its weights once in the compute dtype, where the
+    JAX engine keeps f32 and casts at every use: the values used are the
+    same).
+    """
+    check_dense(cfg)
+    embed = tree["embed"]
+    if tuple(embed.shape) != (cfg.vocab_size, cfg.d_model):
+        raise ValueError(f"embed shape {tuple(embed.shape)} does not match "
+                         f"{cfg.name} ({cfg.vocab_size}, {cfg.d_model})")
+    return _map(tree, lambda a: _to_tensor(a, device, dtype))
+
+
+def params_to_numpy(params: dict) -> dict:
+    """The port's tree as numpy arrays, keys, order and ``None`` kept.
+
+    numpy has no bfloat16, so bf16 tensors come back as float32, which
+    holds every bf16 value exactly.
+    """
+    def leaf(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.numpy()
+
+    return _map(params, leaf)

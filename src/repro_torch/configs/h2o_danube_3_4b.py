@@ -1,0 +1,20 @@
+"""h2o-danube-3-4b [dense] — llama+mistral mix with sliding-window attention.
+
+24L d_model=3840 32H (GQA kv=8) d_ff=10240 vocab=32000.  [arXiv:2401.16818]
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="h2o-danube-3-4b",
+    arch_type="dense",
+    num_layers=24,
+    d_model=3840,
+    num_heads=32,
+    num_kv_heads=8,
+    d_ff=10240,
+    vocab_size=32000,
+    sliding_window=4096,     # mistral-style SWA
+    norm="rmsnorm",
+    mlp="swiglu",
+    source="arXiv:2401.16818",
+)

@@ -1,0 +1,6 @@
+from repro_torch.models.model import (  # noqa: F401
+    decode_step_fn,
+    init_decode_state,
+    init_params,
+    prefill_fn,
+)

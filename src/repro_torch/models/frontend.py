@@ -1,0 +1,19 @@
+"""Modality frontend stubs (port of ``repro.models.frontend``).
+
+Dense models take tokens only.  The audio and VLM families consume
+synthetic frame/patch embeddings; they are not ported yet (ROADMAP M7).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.configs.base import ModelConfig
+
+
+def synth_extra_inputs(cfg: ModelConfig, batch: int) -> Dict:
+    """Synthetic modality inputs beside the tokens: none for dense."""
+    if cfg.arch_type != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: inputs of arch_type {cfg.arch_type!r} are not "
+            f"ported yet (ROADMAP M7)")
+    return {}

@@ -1,0 +1,233 @@
+"""Model assembly for serving, dense family (port of the decode half of
+``repro.models.model``).
+
+- ``init_params``       — parameter tree, layers stacked on axis 0 as in JAX
+- ``prefill_fn``        — prompt processing -> (last logits, decode state)
+- ``decode_step_fn``    — one-token decode with the KV cache
+- ``init_decode_state`` — cache allocation
+
+Parameters are nested dicts of tensors in the JAX tree's layout and key
+order (``bridge.py`` converts between the two), with ``None`` for absent
+norm parameters.  Layers run as a Python loop over views of the stacked
+weights, where JAX scans.  Every family other than ``dense`` raises.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import mlp as mlp_lib
+from repro_torch.models.common import apply_norm, dense_init, norm_param
+from repro_torch.utils import torch_dtype
+
+_NOT_PORTED = {"ssm": "M3", "hybrid": "M7", "moe": "M7", "vlm": "M7",
+               "audio": "M7"}
+
+
+def check_dense(cfg: ModelConfig) -> None:
+    if cfg.arch_type != "dense":
+        item = _NOT_PORTED.get(cfg.arch_type, "M7")
+        raise NotImplementedError(
+            f"{cfg.name}: arch_type {cfg.arch_type!r} is not ported yet "
+            f"(ROADMAP {item}); the port serves the dense family")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def _init_attn_block(cfg: ModelConfig, gen: torch.Generator, device,
+                     dtype) -> Dict:
+    hd = cfg.resolved_head_dim()
+    return {
+        "ln1": norm_param(cfg.norm, cfg.d_model, device=device, dtype=dtype),
+        "attn": attn_lib.init_attention(gen, cfg.d_model, cfg.num_heads,
+                                        cfg.num_kv_heads, hd, device=device,
+                                        dtype=dtype),
+        "ln2": norm_param(cfg.norm, cfg.d_model, device=device, dtype=dtype),
+        "mlp": mlp_lib.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp,
+                                device=device, dtype=dtype),
+    }
+
+
+def _stack(trees):
+    """Stack a list of equal trees leaf by leaf on a new axis 0."""
+    first = trees[0]
+    if first is None:
+        return None
+    if isinstance(first, dict):
+        return {key: _stack([t[key] for t in trees]) for key in first}
+    return torch.stack(trees)
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked tree, as views."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {key: _layer(val, i) for key, val in tree.items()}
+    return tree[i]
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, *, device,
+                dtype=torch.float32) -> Dict:
+    """Random weights from ``seed`` (a ``torch.Generator`` on ``device``).
+
+    The same shapes, scales and tree as ``repro.models.init_params``; the
+    values differ, since the two frameworks draw other random numbers.
+    """
+    check_dense(cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params: Dict = {
+        "embed": dense_init(gen, (cfg.vocab_size, cfg.d_model), device=device,
+                            dtype=dtype),
+        "final_norm": norm_param(cfg.norm, cfg.d_model, device=device,
+                                 dtype=dtype),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
+                                    device=device, dtype=dtype)
+    params["blocks"] = _stack([_init_attn_block(cfg, gen, device, dtype)
+                               for _ in range(cfg.num_layers)])
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Building blocks
+# ---------------------------------------------------------------------------
+
+def _mlp_res(cfg: ModelConfig, block: Dict, x: torch.Tensor) -> torch.Tensor:
+    h = apply_norm(cfg.norm, x, block["ln2"])
+    return x + mlp_lib.mlp_forward(block["mlp"], h, cfg.mlp)
+
+
+def _lm_head(cfg: ModelConfig, params: Dict) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return params["embed"].T
+    return params["head"]
+
+
+def _logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """(B, d) x (d, V) -> f32 logits.
+
+    JAX takes these with preferred_element_type=f32: products of the
+    working-dtype operands summed in f32.  A bf16 matmul would round its
+    output to bf16, and greedy argmax flips on near ties.  Rounding the head
+    to the working dtype (as JAX's ``astype``) and then casting both
+    operands to f32 gives the same exact products and f32 sums.  It costs an
+    f32 copy of the head (V * d * 4 bytes: 412 MB at olmo-1b) and a GEMM
+    outside the bf16 tensor cores on every call.
+    """
+    return x.float() @ head.to(x.dtype).float()
+
+
+# ---------------------------------------------------------------------------
+# Decode path
+# ---------------------------------------------------------------------------
+
+def cache_length(cfg: ModelConfig, seq_len: int) -> int:
+    """KV-cache length: ring buffer of `window` for SWA models, else seq_len."""
+    if cfg.sliding_window:
+        return min(cfg.sliding_window, seq_len)
+    return seq_len
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int, *, device,
+                      dtype=torch.bfloat16) -> Dict:
+    """{"pos": 0, "kv": {"k", "v": (L, B, cache_len, KVH, hd)}}.
+
+    ``pos`` is a Python int: the host decides cache slots and masks from it
+    without reading the device.
+    """
+    check_dense(cfg)
+    clen = cache_length(cfg, seq_len)
+    shape = (cfg.num_layers, batch, clen, cfg.num_kv_heads,
+             cfg.resolved_head_dim())
+    return {"pos": 0,
+            "kv": {"k": torch.zeros(shape, device=device, dtype=dtype),
+                   "v": torch.zeros(shape, device=device, dtype=dtype)}}
+
+
+def decode_step_fn(params: Dict, state: Dict, token: torch.Tensor,
+                   cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+    """One decode step.  token: (B,) int.  Returns (logits (B, V) f32, state).
+
+    The KV cache in ``state`` is updated in place (see
+    ``attention.decode_attention``) and ``state`` itself is returned with
+    ``pos`` advanced.
+    """
+    check_dense(cfg)
+    dtype = torch_dtype(cfg.dtype)
+    pos = state["pos"]
+    x = params["embed"][token].to(dtype)[:, None]  # (B, 1, d)
+    kv = state["kv"]
+    for i in range(cfg.num_layers):
+        block = _layer(params["blocks"], i)
+        h = apply_norm(cfg.norm, x, block["ln1"])
+        h, _ = attn_lib.decode_attention(
+            block["attn"], h, {"k": kv["k"][i], "v": kv["v"][i]}, pos,
+            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+            rope_theta=cfg.rope_theta, window=cfg.sliding_window)
+        x = _mlp_res(cfg, block, x + h)
+    x = apply_norm(cfg.norm, x, params["final_norm"])
+    logits = _logits(x[:, 0], _lm_head(cfg, params))
+    state["pos"] = pos + 1
+    return logits, state
+
+
+# ---------------------------------------------------------------------------
+# Prefill
+# ---------------------------------------------------------------------------
+
+def _fill_cache(cfg: ModelConfig, cache_k: torch.Tensor, cache_v: torch.Tensor,
+                k: torch.Tensor, v: torch.Tensor) -> None:
+    """Write one layer's prompt k/v (B, S, KVH, hd) into its zeroed cache
+    (B, clen, KVH, hd): the last ``clen`` positions in ring layout for
+    sliding-window models, else positions 0..S-1 with zeros after them."""
+    s, clen = k.shape[1], cache_k.shape[1]
+    if cfg.sliding_window and s > clen:
+        # ring layout: position p lives at slot p % clen; after slicing the
+        # last clen positions (s-clen .. s-1), original index i holds
+        # position s-clen+i, whose slot is (i + s) % clen -> roll by s%clen.
+        cache_k.copy_(torch.roll(k[:, -clen:], s % clen, dims=1))
+        cache_v.copy_(torch.roll(v[:, -clen:], s % clen, dims=1))
+    else:
+        cache_k[:, :s] = k
+        cache_v[:, :s] = v
+
+
+def prefill_fn(params: Dict, batch: Dict, cfg: ModelConfig,
+               cache_len: Optional[int] = None) -> Tuple[torch.Tensor, Dict]:
+    """Process a full prompt; returns (last-token logits (B, V) f32, decode
+    state).
+
+    ``cache_len`` sizes the decode cache (>= prompt length) so generation
+    has headroom; default = prompt length.  The k/v each layer's attention
+    projects are written into the cache as they are, where JAX projects
+    them a second time; the cache comes out the same.
+    """
+    check_dense(cfg)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    target_len = cache_len if cache_len is not None else s
+    if target_len < s:
+        raise ValueError(f"cache_len {target_len} < prompt length {s}")
+    dtype = torch_dtype(cfg.dtype)
+    x = params["embed"][tokens].to(dtype)
+    state = init_decode_state(cfg, b, target_len, device=x.device, dtype=dtype)
+    state["pos"] = s
+    kv = state["kv"]
+    for i in range(cfg.num_layers):
+        block = _layer(params["blocks"], i)
+        hn = apply_norm(cfg.norm, x, block["ln1"])
+        h, k, v = attn_lib.self_attention_with_kv(
+            block["attn"], hn, num_heads=cfg.num_heads,
+            rope_theta=cfg.rope_theta, window=cfg.sliding_window)
+        _fill_cache(cfg, kv["k"][i], kv["v"][i], k, v)
+        x = _mlp_res(cfg, block, x + h)
+    x = apply_norm(cfg.norm, x, params["final_norm"])
+    logits = _logits(x[:, -1], _lm_head(cfg, params))
+    return logits, state

@@ -1,0 +1,79 @@
+"""The port's package boundary and entry points, on the CPU: it imports no
+JAX and nothing of ``repro``, its engine refuses to guess a device, its
+serve command runs, and its analytic replica model agrees with the JAX
+package's under one explicit ``GpuSpec``."""
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.serving import engine as jax_engine
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.serving import engine as pt_engine
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def _run(*args, timeout=120):
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    return subprocess.run([sys.executable, *args], capture_output=True,
+                          text=True, env=env, timeout=timeout)
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    code = (
+        "import importlib, pkgutil, sys, repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "repro_torch.__path__, 'repro_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro') or m.startswith('jax')]\n"
+        "print(len(names), bad)\n"
+        "sys.exit(1 if bad or len(names) < 20 else 0)\n")
+    proc = _run("-c", code)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_engine_without_device_raises_where_there_is_no_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pt_engine.ServingEngine(get_smoke_config("olmo-1b"))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "granite-moe-3b-a800m"])
+def test_engine_raises_for_families_not_ported(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pt_engine.ServingEngine(get_smoke_config(arch), device="cpu")
+
+
+def test_serve_cli_runs_plan_and_smoke_on_cpu():
+    proc = _run("-m", "repro_torch.launch.serve", "--device", "cpu",
+                "--decode-tokens", "4")
+    assert proc.returncode == 0, proc.stderr
+    assert "plan[olmo-1b]" in proc.stdout
+    assert "smoke[olmo-1b]" in proc.stdout and "ran on cpu" in proc.stdout
+
+
+def test_default_gpu_spec_is_the_h100_data_sheet():
+    gpu = pt_engine.DEFAULT_GPU
+    assert (gpu.hbm_bytes, gpu.hbm_bandwidth, gpu.flops) == (
+        80e9, 3.35e12, 989e12)
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "yi-9b", "qwen3-moe-30b-a3b",
+                                  "mamba2-130m"])
+@pytest.mark.parametrize("slo_ms", [30.0, 200.0])
+def test_replica_profile_matches_jax_under_one_gpu_spec(arch, slo_ms):
+    spec = dict(name="probe", hbm_bytes=int(40e9), hbm_bandwidth=2.0e12,
+                flops=300e12, mfu=0.35, step_overhead_seconds=5e-4)
+    ours = pt_engine.ReplicaProfile.from_config(
+        get_config(arch), slo_ms, gpu=pt_engine.GpuSpec(**spec))
+    want = jax_engine.ReplicaProfile.from_config(
+        jax_get_config(arch), slo_ms, gpu=jax_engine.GpuSpec(**spec))
+    assert dataclasses.asdict(ours) == dataclasses.asdict(want)

@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import check_dense
+from repro_torch.models.model import check_ported
+from repro_torch.models.ssm import F32_LEAVES
 
 
 def _to_tensor(arr, device, dtype) -> torch.Tensor:
@@ -29,12 +30,13 @@ def _to_tensor(arr, device, dtype) -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
-def _map(tree: Any, fn) -> Any:
+def _map(tree: Any, fn, key: str = "") -> Any:
+    """``fn(leaf, key)`` over the tree, ``key`` the leaf's own name."""
     if tree is None:
         return None
     if isinstance(tree, dict):
-        return {key: _map(val, fn) for key, val in tree.items()}
-    return fn(tree)
+        return {k: _map(val, fn, k) for k, val in tree.items()}
+    return fn(tree, key)
 
 
 def params_from_jax(tree: dict, cfg: ModelConfig, device="cpu",
@@ -42,16 +44,18 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cpu",
     """The port's parameter tree from a JAX tree of numpy arrays.
 
     Values are copied bit for bit; ``dtype``, when given, casts every leaf
-    (the port may store its weights once in the compute dtype, where the
-    JAX engine keeps f32 and casts at every use: the values used are the
-    same).
+    but the SSM's ``A_log``, ``D`` and ``dt_bias``, which JAX keeps and
+    uses in f32 (the port may store its weights once in the compute dtype,
+    where the JAX engine keeps f32 and casts at every use: the values used
+    are the same).
     """
-    check_dense(cfg)
+    check_ported(cfg)
     embed = tree["embed"]
     if tuple(embed.shape) != (cfg.vocab_size, cfg.d_model):
         raise ValueError(f"embed shape {tuple(embed.shape)} does not match "
                          f"{cfg.name} ({cfg.vocab_size}, {cfg.d_model})")
-    return _map(tree, lambda a: _to_tensor(a, device, dtype))
+    return _map(tree, lambda a, key: _to_tensor(
+        a, device, None if key in F32_LEAVES else dtype))
 
 
 def params_to_numpy(params: dict) -> dict:
@@ -60,7 +64,7 @@ def params_to_numpy(params: dict) -> dict:
     numpy has no bfloat16, so bf16 tensors come back as float32, which
     holds every bf16 value exactly.
     """
-    def leaf(t: torch.Tensor) -> np.ndarray:
+    def leaf(t: torch.Tensor, _key: str) -> np.ndarray:
         t = t.detach().cpu()
         if t.dtype == torch.bfloat16:
             t = t.float()

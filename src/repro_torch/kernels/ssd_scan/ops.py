@@ -1,0 +1,55 @@
+"""Public SSD op: the intra-chunk kernel plus the inter-chunk recurrence
+(port of ``repro.kernels.ssd_scan.ops``)."""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.ssd_scan.ref import _pad_seq, ssd_intra_chunk_ref
+from repro_torch.kernels.ssd_scan.ssd import ssd_intra_chunk
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                b: torch.Tensor, c: torch.Tensor, chunk: int,
+                initial_state: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan, the contract of ``ssd_chunked_pallas``.
+
+    x (B, L, H, P), dt (B, L, H), a (H,), b/c (B, L, N) ->
+    (y (B, L, H, P) in x's dtype, final_state (B, H, P, N) f32).  L is
+    padded to a multiple of ``chunk`` with zeros (dt = 0: no decay and no
+    contribution).  CPU tensors take the plain intra-chunk version; any
+    other tensor goes to the CUDA kernel, which launches or raises.  The
+    recurrence across chunks and the inter-chunk output stay plain torch,
+    as JAX runs them outside Pallas.
+    """
+    bs, l, h, p = x.shape
+    n = b.shape[-1]
+    pad = (-l) % chunk
+    if pad:
+        x, dt, b, c = (_pad_seq(t, pad) for t in (x, dt, b, c))
+    nc = x.shape[1] // chunk
+    intra = ssd_intra_chunk_ref if x.device.type == "cpu" else ssd_intra_chunk
+    y_intra, states, cum = intra(
+        x.reshape(bs * nc, chunk, h, p), dt.reshape(bs * nc, chunk, h),
+        a.float(), b.reshape(bs * nc, chunk, n), c.reshape(bs * nc, chunk, n))
+    y_intra = y_intra.view(bs, nc, chunk, h, p)
+    states = states.view(bs, nc, h, p, n)
+    cum = cum.view(bs, nc, chunk, h)
+
+    decay_chunk = torch.exp(cum[:, :, -1, :])                # (B, nc, H)
+    s = (torch.zeros(bs, h, p, n, device=x.device) if initial_state is None
+         else initial_state.float())
+    s_before = []
+    for i in range(nc):
+        s_before.append(s)
+        s = s * decay_chunk[:, i, :, None, None] + states[:, i]
+    # y_inter[t] = C_t . (exp(cum_t) S_in): one batched product, then the
+    # decay (a three-operand torch.einsum would plan its contraction order
+    # on the host at every call)
+    y_inter = torch.einsum("bqtn,bqhpn->bqthp",
+                           c.reshape(bs, nc, chunk, n).float(),
+                           torch.stack(s_before, 1)) * torch.exp(cum)[..., None]
+    y = (y_intra + y_inter).reshape(bs, nc * chunk, h, p)[:, :l]
+    return y.to(x.dtype), s

@@ -1,15 +1,18 @@
-"""Model assembly for serving, dense family (port of the decode half of
-``repro.models.model``).
+"""Model assembly for serving: the dense, SSM and hybrid families (port of
+the decode half of ``repro.models.model``).
 
 - ``init_params``       — parameter tree, layers stacked on axis 0 as in JAX
 - ``prefill_fn``        — prompt processing -> (last logits, decode state)
-- ``decode_step_fn``    — one-token decode with the KV cache
+- ``decode_step_fn``    — one-token decode with the KV and SSM caches
 - ``init_decode_state`` — cache allocation
 
 Parameters are nested dicts of tensors in the JAX tree's layout and key
 order (``bridge.py`` converts between the two), with ``None`` for absent
 norm parameters.  Layers run as a Python loop over views of the stacked
-weights, where JAX scans.  Every family other than ``dense`` raises.
+weights, where JAX scans; the hybrid family (zamba2) walks the same group
+layout as JAX's group scans: ``n_groups`` groups of ``attn_every`` Mamba2
+layers, each followed by the one shared attention block, then the tail
+layers.  The MoE, VLM and audio families raise.
 """
 from __future__ import annotations
 
@@ -20,19 +23,18 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import apply_norm, dense_init, norm_param
 from repro_torch.utils import torch_dtype
 
-_NOT_PORTED = {"ssm": "M3", "hybrid": "M7", "moe": "M7", "vlm": "M7",
-               "audio": "M7"}
+PORTED = ("dense", "ssm", "hybrid")
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    if cfg.arch_type != "dense":
-        item = _NOT_PORTED.get(cfg.arch_type, "M7")
+def check_ported(cfg: ModelConfig) -> None:
+    if cfg.arch_type not in PORTED:
         raise NotImplementedError(
             f"{cfg.name}: arch_type {cfg.arch_type!r} is not ported yet "
-            f"(ROADMAP {item}); the port serves the dense family")
+            f"(ROADMAP M7); the port serves the families {PORTED}")
 
 
 # ---------------------------------------------------------------------------
@@ -50,6 +52,15 @@ def _init_attn_block(cfg: ModelConfig, gen: torch.Generator, device,
         "ln2": norm_param(cfg.norm, cfg.d_model, device=device, dtype=dtype),
         "mlp": mlp_lib.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp,
                                 device=device, dtype=dtype),
+    }
+
+
+def _init_ssm_block(cfg: ModelConfig, gen: torch.Generator, device,
+                    dtype) -> Dict:
+    return {
+        "ln1": norm_param(cfg.norm, cfg.d_model, device=device, dtype=dtype),
+        "ssm": ssm_lib.init_ssm(gen, cfg.d_model, cfg.ssm, device=device,
+                                dtype=dtype),
     }
 
 
@@ -72,14 +83,50 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def group_layout(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(n_groups, layers_per_group, tail_layers) for group-scan archs."""
+    if cfg.arch_type == "hybrid":
+        every = cfg.attn_every
+    elif cfg.arch_type == "vlm":
+        every = cfg.vlm.cross_attn_every
+    else:
+        return (0, 0, cfg.num_layers)
+    n = cfg.num_layers // every
+    return (n, every, cfg.num_layers - n * every)
+
+
+def num_shared_attn(cfg: ModelConfig) -> int:
+    return group_layout(cfg)[0] if cfg.arch_type == "hybrid" else 0
+
+
+def _layers(cfg: ModelConfig, params: Dict):
+    """(kind, block, cache index) for each block in the order JAX's (group)
+    scans run them: ("attn", layer, i) for dense layer i; ("ssm", layer, i)
+    for Mamba2 layer i; for hybrid, ("attn", shared block, g) after the
+    layers of group g, then the tail layers."""
+    blocks = params["blocks"]
+    if cfg.arch_type == "dense":
+        for i in range(cfg.num_layers):
+            yield "attn", _layer(blocks, i), i
+        return
+    n, per, _ = group_layout(cfg)
+    for g in range(n):
+        for i in range(g * per, (g + 1) * per):
+            yield "ssm", _layer(blocks, i), i
+        yield "attn", params["shared_attn"], g
+    for i in range(n * per, cfg.num_layers):
+        yield "ssm", _layer(blocks, i), i
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, *, device,
                 dtype=torch.float32) -> Dict:
     """Random weights from ``seed`` (a ``torch.Generator`` on ``device``).
 
     The same shapes, scales and tree as ``repro.models.init_params``; the
     values differ, since the two frameworks draw other random numbers.
+    ``A_log``, ``D`` and ``dt_bias`` stay f32 whatever ``dtype``, as in JAX.
     """
-    check_dense(cfg)
+    check_ported(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     params: Dict = {
         "embed": dense_init(gen, (cfg.vocab_size, cfg.d_model), device=device,
@@ -90,8 +137,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device,
     if not cfg.tie_embeddings:
         params["head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                     device=device, dtype=dtype)
-    params["blocks"] = _stack([_init_attn_block(cfg, gen, device, dtype)
+    block = _init_attn_block if cfg.arch_type == "dense" else _init_ssm_block
+    params["blocks"] = _stack([block(cfg, gen, device, dtype)
                                for _ in range(cfg.num_layers)])
+    if cfg.arch_type == "hybrid":
+        # zamba2: ONE shared attention block applied every attn_every layers
+        params["shared_attn"] = _init_attn_block(cfg, gen, device, dtype)
     return params
 
 
@@ -136,42 +187,77 @@ def cache_length(cfg: ModelConfig, seq_len: int) -> int:
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int, *, device,
-                      dtype=torch.bfloat16) -> Dict:
-    """{"pos": 0, "kv": {"k", "v": (L, B, cache_len, KVH, hd)}}.
+                      dtype=torch.bfloat16, conv_dtype=torch.float32) -> Dict:
+    """The decode state, in the JAX state's keys and shapes:
 
-    ``pos`` is a Python int: the host decides cache slots and masks from it
-    without reading the device.
+    - ``pos``: a Python int, so the host decides cache slots and masks
+      without reading the device;
+    - ``kv`` {"k", "v": (L, B, cache_len, KVH, hd)} in ``dtype`` for dense,
+      with one entry per shared-attention application (n_groups) for
+      hybrid;
+    - ``ssm`` {"conv": (L, B, W-1, d_in+2N) in ``conv_dtype``, "ssm": (L, B,
+      H, P, N) f32} for ssm and hybrid.  ``conv_dtype`` is f32 as in JAX's
+      ``init_decode_state``; prefill passes the working dtype, which JAX's
+      prefill state holds.
     """
-    check_dense(cfg)
-    clen = cache_length(cfg, seq_len)
-    shape = (cfg.num_layers, batch, clen, cfg.num_kv_heads,
-             cfg.resolved_head_dim())
-    return {"pos": 0,
-            "kv": {"k": torch.zeros(shape, device=device, dtype=dtype),
-                   "v": torch.zeros(shape, device=device, dtype=dtype)}}
+    check_ported(cfg)
+    state: Dict = {"pos": 0}
+    n_kv = {"dense": cfg.num_layers, "hybrid": num_shared_attn(cfg)}.get(
+        cfg.arch_type)
+    if n_kv is not None:
+        shape = (n_kv, batch, cache_length(cfg, seq_len), cfg.num_kv_heads,
+                 cfg.resolved_head_dim())
+        state["kv"] = {"k": torch.zeros(shape, device=device, dtype=dtype),
+                       "v": torch.zeros(shape, device=device, dtype=dtype)}
+    if cfg.arch_type in ("ssm", "hybrid"):
+        per = ssm_lib.init_ssm_state(batch, cfg.d_model, cfg.ssm,
+                                     device=device, dtype=conv_dtype)
+        state["ssm"] = {key: val.new_zeros((cfg.num_layers, *val.shape))
+                        for key, val in per.items()}
+    return state
+
+
+def _attn_decode(cfg: ModelConfig, block: Dict, x: torch.Tensor, kv: Dict,
+                 i: int, pos: int) -> torch.Tensor:
+    """Attention block ``block`` on one token with KV cache entry ``i``,
+    written in place; then the MLP."""
+    h = apply_norm(cfg.norm, x, block["ln1"])
+    h, _ = attn_lib.decode_attention(
+        block["attn"], h, {"k": kv["k"][i], "v": kv["v"][i]}, pos,
+        num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+        rope_theta=cfg.rope_theta, window=cfg.sliding_window)
+    return _mlp_res(cfg, block, x + h)
+
+
+def _ssm_decode(cfg: ModelConfig, block: Dict, x: torch.Tensor, sstate: Dict,
+                i: int) -> torch.Tensor:
+    """Mamba2 layer ``i`` on one token; its state is updated in place."""
+    h = apply_norm(cfg.norm, x, block["ln1"])
+    h, new = ssm_lib.ssm_decode_step(
+        block["ssm"], h, {"conv": sstate["conv"][i], "ssm": sstate["ssm"][i]},
+        cfg.ssm)
+    sstate["conv"][i] = new["conv"]
+    sstate["ssm"][i] = new["ssm"]
+    return x + h
 
 
 def decode_step_fn(params: Dict, state: Dict, token: torch.Tensor,
                    cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
     """One decode step.  token: (B,) int.  Returns (logits (B, V) f32, state).
 
-    The KV cache in ``state`` is updated in place (see
+    The KV and SSM caches in ``state`` are updated in place (see
     ``attention.decode_attention``) and ``state`` itself is returned with
     ``pos`` advanced.
     """
-    check_dense(cfg)
+    check_ported(cfg)
     dtype = torch_dtype(cfg.dtype)
     pos = state["pos"]
     x = params["embed"][token].to(dtype)[:, None]  # (B, 1, d)
-    kv = state["kv"]
-    for i in range(cfg.num_layers):
-        block = _layer(params["blocks"], i)
-        h = apply_norm(cfg.norm, x, block["ln1"])
-        h, _ = attn_lib.decode_attention(
-            block["attn"], h, {"k": kv["k"][i], "v": kv["v"][i]}, pos,
-            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-            rope_theta=cfg.rope_theta, window=cfg.sliding_window)
-        x = _mlp_res(cfg, block, x + h)
+    for kind, block, i in _layers(cfg, params):
+        if kind == "ssm":
+            x = _ssm_decode(cfg, block, x, state["ssm"], i)
+        else:
+            x = _attn_decode(cfg, block, x, state["kv"], i, pos)
     x = apply_norm(cfg.norm, x, params["final_norm"])
     logits = _logits(x[:, 0], _lm_head(cfg, params))
     state["pos"] = pos + 1
@@ -199,6 +285,29 @@ def _fill_cache(cfg: ModelConfig, cache_k: torch.Tensor, cache_v: torch.Tensor,
         cache_v[:, :s] = v
 
 
+def _attn_prefill(cfg: ModelConfig, block: Dict, x: torch.Tensor, kv: Dict,
+                  i: int) -> torch.Tensor:
+    """Attention block over the prompt, filling KV cache entry ``i``; then
+    the MLP."""
+    hn = apply_norm(cfg.norm, x, block["ln1"])
+    h, k, v = attn_lib.self_attention_with_kv(
+        block["attn"], hn, num_heads=cfg.num_heads,
+        rope_theta=cfg.rope_theta, window=cfg.sliding_window)
+    _fill_cache(cfg, kv["k"][i], kv["v"][i], k, v)
+    return _mlp_res(cfg, block, x + h)
+
+
+def _ssm_prefill_layer(cfg: ModelConfig, block: Dict, x: torch.Tensor,
+                       sstate: Dict, i: int) -> torch.Tensor:
+    """Mamba2 layer ``i`` over the full prompt; its decode state goes into
+    entry ``i`` of ``sstate``."""
+    h = apply_norm(cfg.norm, x, block["ln1"])
+    out, new = ssm_lib.ssm_prefill(block["ssm"], h, cfg.ssm)
+    sstate["conv"][i] = new["conv"]
+    sstate["ssm"][i] = new["ssm"]
+    return x + out
+
+
 def prefill_fn(params: Dict, batch: Dict, cfg: ModelConfig,
                cache_len: Optional[int] = None) -> Tuple[torch.Tensor, Dict]:
     """Process a full prompt; returns (last-token logits (B, V) f32, decode
@@ -209,7 +318,7 @@ def prefill_fn(params: Dict, batch: Dict, cfg: ModelConfig,
     projects are written into the cache as they are, where JAX projects
     them a second time; the cache comes out the same.
     """
-    check_dense(cfg)
+    check_ported(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     target_len = cache_len if cache_len is not None else s
@@ -217,17 +326,14 @@ def prefill_fn(params: Dict, batch: Dict, cfg: ModelConfig,
         raise ValueError(f"cache_len {target_len} < prompt length {s}")
     dtype = torch_dtype(cfg.dtype)
     x = params["embed"][tokens].to(dtype)
-    state = init_decode_state(cfg, b, target_len, device=x.device, dtype=dtype)
+    state = init_decode_state(cfg, b, target_len, device=x.device, dtype=dtype,
+                              conv_dtype=dtype)
     state["pos"] = s
-    kv = state["kv"]
-    for i in range(cfg.num_layers):
-        block = _layer(params["blocks"], i)
-        hn = apply_norm(cfg.norm, x, block["ln1"])
-        h, k, v = attn_lib.self_attention_with_kv(
-            block["attn"], hn, num_heads=cfg.num_heads,
-            rope_theta=cfg.rope_theta, window=cfg.sliding_window)
-        _fill_cache(cfg, kv["k"][i], kv["v"][i], k, v)
-        x = _mlp_res(cfg, block, x + h)
+    for kind, block, i in _layers(cfg, params):
+        if kind == "ssm":
+            x = _ssm_prefill_layer(cfg, block, x, state["ssm"], i)
+        else:
+            x = _attn_prefill(cfg, block, x, state["kv"], i)
     x = apply_norm(cfg.norm, x, params["final_norm"])
     logits = _logits(x[:, -1], _lm_head(cfg, params))
     return logits, state

@@ -46,7 +46,7 @@ def test_engine_without_device_raises_where_there_is_no_card():
         pt_engine.ServingEngine(get_smoke_config("olmo-1b"))
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("arch", ["whisper-base", "granite-moe-3b-a800m"])
 def test_engine_raises_for_families_not_ported(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt_engine.ServingEngine(get_smoke_config(arch), device="cpu")
@@ -58,6 +58,16 @@ def test_serve_cli_runs_plan_and_smoke_on_cpu():
     assert proc.returncode == 0, proc.stderr
     assert "plan[olmo-1b]" in proc.stdout
     assert "smoke[olmo-1b]" in proc.stdout and "ran on cpu" in proc.stdout
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b"])
+def test_serve_cli_runs_the_ssm_families_on_cpu(arch):
+    proc = _run("-m", "repro_torch.launch.serve", "--arch", arch, "--device",
+                "cpu", "--decode-tokens", "4")
+    assert proc.returncode == 0, proc.stderr
+    assert f"plan[{arch}]" in proc.stdout
+    assert f"smoke[{arch}]" in proc.stdout and "ran on cpu" in proc.stdout
+    assert "generated token ids (first row):" in proc.stdout
 
 
 def test_default_gpu_spec_is_the_h100_data_sheet():

@@ -9,8 +9,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    from the repository's sources (one ``nvcc`` per source, all started
    together) and print the build time and the compiler's register report.
 2. Hold ``swa_flash`` against its plain PyTorch version on the card at the
-   olmo serving shape (bf16 and f32) and at two ragged/windowed shapes,
-   then time the kernel, the plain version and PyTorch's
+   olmo serving shape (bf16 and f32), at two ragged/windowed shapes and
+   at the olmo-1b training shapes (B 4 and 2, S 4096, bf16), then time the kernel, the plain version and PyTorch's
    ``scaled_dot_product_attention`` (the yardstick; the port never calls
    it) beside the kernel's bound.
 2b. Hold ``ssd_intra_chunk`` against its plain version at the mamba2-130m
@@ -19,6 +19,13 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    recurrence and its own ``initial_state`` continuation; time the kernel
    and the plain version beside the kernel's bound (no PyTorch call
    computes this function).
+2c. Hold ``fused_ce_stats`` against its plain version at the olmo-1b
+   training shapes (T 16384 and 8192 tokens, d 2048, V 50304, bf16, the
+   head read in place as ``embed.T``) and a ragged f32 case; compare the
+   (sum, count) of ``fused_cross_entropy`` with the full-logits plain CE;
+   time the kernel and the plain version beside the kernel's bound, with
+   cuBLAS's time for the bare ``h @ W`` GEMM printed for context (no
+   PyTorch call computes (lse, pick)).
 3. Drive the port's serving paths at full width, each through
    ``ServingEngine``, which generates 32 greedy tokens for 4 prompts of
    512 with random weights from seed 0: olmo-1b (16 layers, d_model 2048,
@@ -32,13 +39,28 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    bf16.
 3b. f32 checks: decode-vs-prefill at full width for each model, and the
    card path against the CPU path on the olmo and mamba2 smoke configs.
-4. Print the ``kernels`` JSON line, the card's name and power limit, and as
+4. Train olmo-1b at full width (bf16 compute, f32 master weights and
+   AdamW) through the port's ``ElasticRuntime``: logical world 4, global
+   batch 4 of 4096 tokens, 3 steps at 4 physical devices (splice 1), then
+   ``resize(2)`` and 2 steps at splice 2.  First the kernel path against
+   the plain path on the first batch (loss, grad_norm, a nonzero gradient
+   for every leaf); then the main path, counts set to 0 just before and
+   read just after, with each step's launches asserted (1
+   ``fused_ce_stats`` and 32 ``swa_flash`` per slice: 16 layers in the
+   forward and 16 again in remat's recomputation), its time, tokens/s,
+   peak memory and share of the bf16 peak; a profile of one step; the
+   first loss against ln V + sigma^2 / 2; splice 1 against splice 2 from
+   one state at full width with 4 layers.
+4b. f32, card against CPU: one training step of the olmo smoke config
+   from one bridged state on each device; loss, moments and parameters.
+5. Print the ``kernels`` JSON line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 It imports no JAX and nothing of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -59,6 +81,8 @@ KERNEL_CASES = [
     (4, 512, 16, 128, 0, "float32"),
     (2, 200, 3, 64, 96, "float32"),     # ragged S, odd window
     (1, 128, 1, 32, 48, "float32"),
+    (4, 4096, 16, 128, 0, "bfloat16"),  # olmo-1b training, splice 1
+    (2, 4096, 16, 128, 0, "bfloat16"),  # splice 2: one slice
 ]
 # The kernel and the plain version both accumulate in f32 and differ in
 # the order of summation: 2e-5 at f32 (tests/test_kernels.py's bound).  At
@@ -78,13 +102,36 @@ SSD_CASES = [
 SSD_TOL = dict(rtol=1e-4, atol=1e-4)
 SSD_RAGGED = (1, 200, 2, 64, 32, 64)     # (B, L, H, P, N, chunk): wrapper
 
+# fused_ce_stats vs plain version: (T, d, V, dtype name, head as embed.T)
+CE_CASES = [
+    (16384, 2048, 50304, "bfloat16", True),  # olmo-1b training, splice 1
+    (8192, 2048, 50304, "bfloat16", True),   # splice 2: one slice
+    (300, 256, 777, "float32", False),       # ragged T and V, labels -1
+]
+# Both sum the same f32 products (exact for bf16 operands) in another
+# order, over d <= 2048 terms; logits are about 1 and lse about 11
+CE_TOL = dict(rtol=1e-5, atol=1e-4)
+
 BATCH, PROMPT, NEW_TOKENS = 4, 512, 32
 # the serving paths, each with its kernels' launches per prefill
 PATHS = [
-    ("olmo-1b", {"swa_flash": 16, "ssd_intra_chunk": 0}),
-    ("mamba2-130m", {"swa_flash": 0, "ssd_intra_chunk": 24}),
-    ("zamba2-1.2b", {"swa_flash": 6, "ssd_intra_chunk": 38}),
+    ("olmo-1b", {"swa_flash": 16, "ssd_intra_chunk": 0, "fused_ce_stats": 0}),
+    ("mamba2-130m", {"swa_flash": 0, "ssd_intra_chunk": 24,
+                     "fused_ce_stats": 0}),
+    ("zamba2-1.2b", {"swa_flash": 6, "ssd_intra_chunk": 38,
+                     "fused_ce_stats": 0}),
 ]
+
+# olmo-1b training: logical world 4, global batch 4 x 4096 (the repo's
+# train_4k shape, batch cut from 256 to fit one card); 3 steps at 4
+# physical devices, then resize(2) and 2 steps at splice 2
+TRAIN = dict(world=4, batch=4, seq=4096, physical=(4, 4, 4, 2, 2))
+TRAIN_PATH = "olmo-1b train"
+# Kernel path against plain path on the first batch, bf16: about 10x the
+# readings on an H100 (loss 8.8e-6, grad_norm 1.0e-5 relative).  This check
+# is weak on the attention, a small term of the residual at 0.02-scale
+# init; phase 2 holds swa_flash itself at the training shapes.
+TRAIN_TOL = dict(loss=1e-4, grad_norm=1e-4)
 
 
 def card_line() -> str:
@@ -290,6 +337,360 @@ def _time_ssd(torch, gen, ssd_intra_chunk, ref, case):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+def ce_bound(torch, t, d, v, dtype):
+    """Least time for ``fused_ce_stats`` on an H100 SXM (data sheet):
+    hidden (T, d), head (d, V) and int32 labels read once and lse, pick
+    (f32) written once over the HBM rate, against 2 T d V flops over the
+    dense peak of the operand type.  Returns (ms, "bytes" | "operations")."""
+    from repro_torch.utils import constants
+
+    elsize = torch.empty((), dtype=dtype).element_size()
+    moved = elsize * (t * d + d * v) + 4 * t + 8 * t
+    return _bound(moved / constants.DATASHEET_HBM_BANDWIDTH,
+                  2 * t * d * v / _peak_flops(torch, dtype))
+
+
+def _ce_inputs(torch, gen, t, d, v, dtype, tied):
+    """hidden ~ N(0, 1), head ~ 0.02 N(0, 1) (the embedding's init scale),
+    as ``embed.T`` when ``tied``; labels in [-1, V)."""
+    h = torch.randn(t, d, generator=gen, device="cuda").to(dtype)
+    if tied:
+        w = (0.02 * torch.randn(v, d, generator=gen, device="cuda")).to(dtype).T
+    else:
+        w = (0.02 * torch.randn(d, v, generator=gen, device="cuda")).to(dtype)
+    lab = torch.randint(-1, v, (t,), generator=gen, device="cuda")
+    return h, w, lab
+
+
+def phase_ce_kernel(torch, ce, ce_ref, fused_cross_entropy):
+    print("\n== phase 2c: fused_ce_stats against its plain version on the "
+          "card", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    main_err = None
+    for t, d, v, dname, tied in CE_CASES:
+        dtype = getattr(torch, dname)
+        h, w, lab = _ce_inputs(torch, gen, t, d, v, dtype, tied)
+        lse, pick = ce.fused_ce_stats(h, w, lab)
+        torch.cuda.synchronize()
+        want_lse, want_pick = ce_ref.fused_ce_stats_ref(h, w, lab)
+        for name, got, want in (("lse", lse, want_lse),
+                                ("pick", pick, want_pick)):
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"non-finite {name} at {(t, d, v)}")
+            torch.testing.assert_close(got, want, **CE_TOL)
+        if not (pick[lab < 0] == -1e30).all():
+            raise AssertionError("a label < 0 picked a logit")
+        with torch.no_grad():
+            loss, count = fused_cross_entropy(h, w, lab)
+        want_loss, want_count = ce_ref.cross_entropy_ref(h, w, lab)
+        if count.item() != want_count.item():
+            raise AssertionError(f"count {count.item()} != {want_count.item()}")
+        torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=0)
+        errs = [(lse - want_lse).abs().max().item(),
+                (pick - want_pick)[lab >= 0].abs().max().item()]
+        print(f"T={t} d={d} V={v} {dname}, head "
+              f"{'embed.T' if tied else '(d, V)'}: max |lse - plain| "
+              f"{errs[0]!r}, max |pick - plain| {errs[1]!r} (rtol 1e-5, "
+              f"atol 1e-4); fused_cross_entropy (sum, count) "
+              f"({loss.item()!r}, {count.item()!r}), full-logits plain sum "
+              f"{want_loss.item()!r}, diff {(loss - want_loss).item()!r} "
+              f"(rtol 1e-5), count diff 0", flush=True)
+        if main_err is None:
+            main_err = max(errs)
+        del h, w, lab, want_lse, want_pick
+
+    times = {}
+    for t, d, v, dname, tied in CE_CASES[:2]:
+        dtype = getattr(torch, dname)
+        h, w, lab = _ce_inputs(torch, gen, t, d, v, dtype, tied)
+        gemm_ms = time_ms(torch, lambda: h @ w, 10)
+        kernel_ms = time_ms(torch, lambda: ce.fused_ce_stats(h, w, lab), 10)
+        plain_ms = time_ms(torch, lambda: ce_ref.fused_ce_stats_ref(h, w, lab),
+                           3, 1)
+        kernel_ms_2 = time_ms(torch, lambda: ce.fused_ce_stats(h, w, lab), 10)
+        bound_ms, bound_by = ce_bound(torch, t, d, v, dtype)
+        print(f"context: cuBLAS h @ W at T={t} ({dname} GEMM, (T, V) {dname} "
+              f"out): {gemm_ms!r} ms", flush=True)
+        print(f"times at T={t} d={d} V={v} {dname} (mean of back-to-back "
+              f"launches): kernel {kernel_ms!r} ms then {kernel_ms_2!r} ms, "
+              f"plain {plain_ms!r} ms, bound {bound_ms!r} ms ({bound_by}); "
+              f"library: none (no PyTorch call computes (lse, pick))",
+              flush=True)
+        times[t] = dict(ms=(kernel_ms + kernel_ms_2) / 2, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by)
+        del h, w, lab
+        torch.cuda.empty_cache()
+    return dict(times[CE_CASES[0][0]], max_abs_err=main_err, library_ms=None)
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Run the model with the kernels' plain versions on the card: the
+    comparison of the kernel path with the plain path, and nothing else.
+    The kernels' wrappers are swapped out where the port calls them, so
+    their launch counts stay as they were."""
+    from repro_torch.kernels.fused_ce import ops as ce_ops
+    from repro_torch.kernels.fused_ce.ref import fused_ce_stats_ref
+    from repro_torch.kernels.swa_attention import ops as swa_ops
+    from repro_torch.kernels.swa_attention.ref import swa_attention_ref
+
+    def swa_plain(q, k, v, *, window):
+        return swa_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2),
+                                 window=window).transpose(1, 2)
+
+    saved = ce_ops.fused_ce_stats, swa_ops.swa_flash
+    ce_ops.fused_ce_stats, swa_ops.swa_flash = fused_ce_stats_ref, swa_plain
+    try:
+        yield
+    finally:
+        ce_ops.fused_ce_stats, swa_ops.swa_flash = saved
+
+
+def _first_batch_grads(torch, rt, loss_and_grads, global_norm):
+    """Loss, grad_norm and per-leaf gradient norms of the runtime's state on
+    its first batch (the cursor is not moved)."""
+    tokens, labels = rt.pipeline.batch_for_ranks(range(rt.world_size),
+                                                 step=0)
+    batch = {"tokens": torch.as_tensor(tokens, device="cuda").long(),
+             "labels": torch.as_tensor(labels, device="cuda").long()}
+    loss, grads = loss_and_grads(rt.state["params"], batch, rt.cfg, rt.tcfg)
+    norms = {}
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for key, val in tree.items():
+                walk(val, f"{path}/{key}" if path else key)
+        elif tree is not None:
+            norms[path] = tree.float().norm().item()
+
+    walk(grads, "")
+    out = loss.item(), global_norm(grads).item(), norms
+    del grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train(torch, card, counters, swa_attention, swa_attention_ref):
+    """olmo-1b training at full width through ElasticRuntime; returns the
+    main path's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.elastic import ElasticRuntime
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.training.state import init_train_state
+    from repro_torch.training.step import loss_and_grads
+
+    print("\n== phase 4: olmo-1b training at full width through "
+          "ElasticRuntime", flush=True)
+    cfg = get_config("olmo-1b")
+    n_params = cfg.param_count()
+    steps = len(TRAIN["physical"])
+    tcfg = TrainConfig(total_steps=steps, warmup_steps=2, learning_rate=1e-3)
+    world, gb, seq = TRAIN["world"], TRAIN["batch"], TRAIN["seq"]
+    tokens_per_step = gb * seq
+
+    # the attention kernel at the training shape, for context
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v = (torch.randn(gb, seq, cfg.num_heads, cfg.resolved_head_dim(),
+                           generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    swa_ms = time_ms(torch, lambda: swa_attention(q, k, v, window=0), 10)
+    swa_plain_ms = time_ms(torch, lambda: swa_attention_ref(qt, kt, vt), 3, 1)
+    sdpa_ms = time_ms(torch, lambda: torch.nn.functional
+                      .scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+                      10)
+    bound = attention_bound(torch, gb, seq, cfg.num_heads,
+                            cfg.resolved_head_dim(), 0, torch.bfloat16)
+    print(f"context: swa_flash forward at the training shape (B={gb} S={seq} "
+          f"H={cfg.num_heads} D={cfg.resolved_head_dim()} bf16 causal): "
+          f"kernel {swa_ms!r} ms, plain {swa_plain_ms!r} ms, "
+          f"scaled_dot_product_attention {sdpa_ms!r} ms, bound {bound[0]!r} "
+          f"ms ({bound[1]})", flush=True)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rt = ElasticRuntime(cfg, tcfg, world, TRAIN["physical"][0], gb, seq,
+                        device="cuda")
+    torch.cuda.synchronize()
+    print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}, compute {cfg.dtype}, f32 master weights and "
+          f"AdamW: {n_params} parameters; world {world}, global batch {gb} x "
+          f"{seq}; state made in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # the kernel path against the plain path on the first batch (these
+    # launches are comparisons: the counts are reset before the main path)
+    loss_k, norm_k, leaf_norms = _first_batch_grads(torch, rt, loss_and_grads,
+                                                    global_norm)
+    before = {name: fn.launches for name, fn in counters.items()}
+    with plain_versions():
+        loss_p, norm_p, _ = _first_batch_grads(torch, rt, loss_and_grads,
+                                               global_norm)
+    if {name: fn.launches for name, fn in counters.items()} != before:
+        raise AssertionError("the plain path launched a kernel")
+    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
+    rel_norm = abs(norm_k - norm_p) / abs(norm_p)
+    print(f"first batch, kernel path against plain path (plain versions on "
+          f"the card): loss {loss_k!r} vs {loss_p!r} (rel {rel_loss!r}, bound "
+          f"{TRAIN_TOL['loss']}), grad_norm {norm_k!r} vs {norm_p!r} (rel "
+          f"{rel_norm!r}, bound {TRAIN_TOL['grad_norm']})", flush=True)
+    if not rel_loss <= TRAIN_TOL["loss"] or \
+            not rel_norm <= TRAIN_TOL["grad_norm"]:
+        raise AssertionError("the kernel path and the plain path disagree")
+    zero = [key for key, n in leaf_norms.items()
+            if not (math.isfinite(n) and n > 0)]
+    print("gradient norm per leaf (kernel path): " + ", ".join(
+        f"{key} {n:.4g}" for key, n in leaf_norms.items()), flush=True)
+    if zero or len(leaf_norms) != 8:
+        raise AssertionError(f"leaves without a finite nonzero gradient: "
+                             f"{zero} of {sorted(leaf_norms)}")
+
+    # the main path: counts to 0 just before, read just after
+    for fn in counters.values():
+        fn.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    records = []
+    for physical in TRAIN["physical"]:
+        if physical != rt.physical:
+            print(f"[resize] {rt.resize(physical)}", flush=True)
+        before = {name: fn.launches for name, fn in counters.items()}
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        start.record()
+        rec = rt.run_steps(1)[0]
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        peak = torch.cuda.max_memory_allocated()
+        launched = {name: fn.launches - before[name]
+                    for name, fn in counters.items()}
+        s = rec["splice"]
+        want = {"swa_flash": 2 * cfg.num_layers * s, "ssd_intra_chunk": 0,
+                "fused_ce_stats": s}
+        share = 6 * n_params * tokens_per_step / (ms / 1e3) / \
+            _peak_flops(torch, torch.bfloat16)
+        print(f"[{card}] step {rec['step']} splice {s}: {ms!r} ms, "
+              f"{tokens_per_step * 1e3 / ms!r} tokens/s, loss "
+              f"{rec['loss']!r}, grad_norm {rec['grad_norm']!r}, peak memory "
+              f"{peak} bytes, 6 N T / time = {share!r} of the bf16 dense "
+              f"peak; launches {launched}", flush=True)
+        if launched != want:
+            raise AssertionError(f"expected launches {want} in a step at "
+                                 f"splice {s}, saw {launched}")
+        if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])):
+            raise AssertionError(f"non-finite metrics {rec}")
+        records.append(rec)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    print(f"launches over the {steps} steps: {launches}", flush=True)
+
+    # ln V + sigma^2 / 2, sigma^2 = d * 0.02^2 (dense_init scale 0.02)
+    expect = math.log(cfg.vocab_size) + cfg.d_model * 0.02 ** 2 / 2
+    first = records[0]["loss"]
+    print(f"first loss {first!r}; ln V + sigma^2/2 = {expect!r}; bounds "
+          f"[10.83, 11.6]", flush=True)
+    if not 10.83 <= first <= 11.6:
+        raise AssertionError(f"first loss {first} outside [10.83, 11.6]")
+
+    _profile(torch, f"training step at splice {rt.splice} (olmo-1b, "
+             f"{tokens_per_step} tokens)", lambda: rt.run_steps(1), top=12)
+    del rt
+    torch.cuda.empty_cache()
+
+    # splice invariance from one state at full width with 4 layers: two
+    # steps at splice 1 against two at splice 2 (test_elastic.py's bound)
+    cfg4 = dataclasses.replace(cfg, num_layers=4)
+    state = init_train_state(cfg4, tcfg, device="cuda")
+    losses = {}
+    for physical in (4, 2):
+        rt4 = ElasticRuntime(cfg4, tcfg, world, physical, gb, seq,
+                             state=state, device="cuda")
+        losses[rt4.splice] = [r["loss"] for r in rt4.run_steps(2)]
+        del rt4
+    rel = [abs(a - b) / abs(a) for a, b in zip(losses[1], losses[2])]
+    print(f"splice invariance, olmo-1b width with 4 layers, two steps from "
+          f"one state: splice 1 {losses[1]!r}, splice 2 {losses[2]!r}, rel "
+          f"diff {rel!r} (bound 1e-3)", flush=True)
+    if not max(rel) < 1e-3:
+        raise AssertionError("splice 1 and splice 2 disagree")
+    del state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_f32():
+    """One step of the olmo smoke config at f32 from one state on the card
+    and on the CPU: loss at 1e-5; m and v at 1e-5 of each leaf's largest
+    entry.  Params: AdamW's first step moves an entry by
+    lr (g / (|g| + eps) + wd p), which rests on g's last bits where |g| is
+    near eps; so 1e-3 lr where |g| >= 1e-6 (100 eps: a change dg moves the
+    entry by at most 1e4 lr dg).  The other, loose entries must be under 5%
+    of each leaf and agree to 0.2 lr: an update flipped in sign is caught
+    wherever it moves an entry by more than 0.1 lr."""
+    import torch
+
+    from repro_torch.bridge import train_state_from_jax, train_state_to_numpy
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import DataPipeline
+    from repro_torch.training import build_train_step, init_train_state
+
+    print("\n== phase 4b: f32 training step, card against CPU", flush=True)
+    cfg = dataclasses.replace(get_smoke_config("olmo-1b"), dtype="float32")
+    tcfg = TrainConfig(total_steps=40, warmup_steps=2, learning_rate=1e-3)
+    cpu_state = init_train_state(cfg, tcfg, device="cpu")
+    card_state = train_state_from_jax(train_state_to_numpy(cpu_state), cfg,
+                                      device="cuda")
+    tokens, labels = DataPipeline(cfg.vocab_size, 128, 4, 4).next_batch()
+    step = build_train_step(cfg, tcfg, splice=2)
+    out = {}
+    for device, state in (("cpu", cpu_state), ("cuda", card_state)):
+        batch = {"tokens": torch.as_tensor(tokens, device=device).long(),
+                 "labels": torch.as_tensor(labels, device=device).long()}
+        new, metrics = step(state, batch)
+        out[device] = (train_state_to_numpy(new), metrics["loss"].item(),
+                       metrics["lr"].item())
+    (cpu_new, cpu_loss, lr), (card_new, card_loss, _) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(card_loss, cpu_loss, rtol=1e-5)
+
+    def leaves(t):
+        if isinstance(t, dict):
+            return [x for val in t.values() for x in leaves(val)]
+        return [] if t is None else [t]
+
+    worst = {}
+    for part in ("m", "v"):
+        for a, b in zip(leaves(card_new["opt"][part]),
+                        leaves(cpu_new["opt"][part])):
+            scale = np.abs(b).max()
+            np.testing.assert_allclose(a / scale, b / scale, rtol=0,
+                                       atol=1e-5)
+            worst[part] = max(worst.get(part, 0.0),
+                              float(np.abs(a - b).max() / scale))
+    firm_diff, loose_diff, shares = 0.0, 0.0, []
+    for a, b, m in zip(leaves(card_new["params"]), leaves(cpu_new["params"]),
+                       leaves(cpu_new["opt"]["m"])):
+        firm = np.abs(m) / (1 - tcfg.beta1) >= 1e-6
+        shares.append(float(1 - firm.mean()))
+        if not shares[-1] < 0.05:
+            raise AssertionError(f"{shares[-1]} of a leaf has |g| < 1e-6")
+        np.testing.assert_allclose(a[firm], b[firm], rtol=0, atol=1e-3 * lr)
+        np.testing.assert_allclose(a[~firm], b[~firm], rtol=0, atol=0.2 * lr)
+        diff = np.abs(a - b)
+        firm_diff = max(firm_diff, float(diff[firm].max()))
+        if not firm.all():
+            loose_diff = max(loose_diff, float(diff[~firm].max()))
+    print(f"olmo smoke config, f32, splice 2, batch 4 x 128: loss card "
+          f"{card_loss!r} vs CPU {cpu_loss!r}; m and v within {worst!r} of "
+          f"each leaf's largest entry (1e-5); params max |diff| "
+          f"{firm_diff!r} where |g| >= 1e-6 (bound 1e-3 lr = "
+          f"{1e-3 * lr!r}), {loose_diff!r} = {loose_diff / lr!r} lr where "
+          f"|g| < 1e-6 (bound 0.2 lr); share with |g| < 1e-6 per leaf "
+          f"{[f'{x:.4g}' for x in shares]} (bound 0.05)", flush=True)
+
+
 def phase_serve(torch, card, arch, expected, counters, tools):
     """One serving path at full width; returns its launch counts."""
     get_config, ServingEngine, prefill_fn, decode_step_fn = tools
@@ -488,6 +889,8 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.kernels import _build
+    from repro_torch.kernels.fused_ce import ce, fused_cross_entropy
+    from repro_torch.kernels.fused_ce import ref as ce_ref
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
     from repro_torch.kernels.ssd_scan import ssd, ssd_chunked
     from repro_torch.kernels.swa_attention import swa_attention
@@ -504,7 +907,7 @@ def main() -> int:
     card = card_line()
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}; card: {card}", flush=True)
-    sources = (swa.SOURCE, ssd.SOURCE)
+    sources = (swa.SOURCE, ssd.SOURCE, ce.SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(_build.build, sources))
@@ -517,13 +920,18 @@ def main() -> int:
     swa_stats = phase_kernel(torch, swa_attention, swa_attention_ref)
     ssd_stats = phase_ssd_kernel(torch, ssd.ssd_intra_chunk, ssd_chunked,
                                  ssd_ref)
+    ce_stats = phase_ce_kernel(torch, ce, ce_ref, fused_cross_entropy)
     counters = {"swa_flash": swa.swa_flash,
-                "ssd_intra_chunk": ssd.ssd_intra_chunk}
+                "ssd_intra_chunk": ssd.ssd_intra_chunk,
+                "fused_ce_stats": ce.fused_ce_stats}
     tools = (get_config, ServingEngine, prefill_fn, decode_step_fn)
     by_path = {arch: phase_serve(torch, card, arch, expected, counters, tools)
                for arch, expected in PATHS}
     phase_checks(torch, get_config, get_smoke_config, init_params,
                  prefill_fn, decode_step_fn, ServingEngine)
+    by_path[TRAIN_PATH] = phase_train(torch, card, counters, swa_attention,
+                                      swa_attention_ref)
+    phase_train_f32()
 
     kernels = []
     for name, route, source, replaces, stats in (
@@ -532,7 +940,10 @@ def main() -> int:
              "src/repro/kernels/swa_attention/swa.py:89", swa_stats),
             ("ssd_intra_chunk", "cuda",
              "src/repro_torch/kernels/ssd_scan/csrc/ssd_intra_chunk.cu",
-             "src/repro/kernels/ssd_scan/ssd.py:58", ssd_stats)):
+             "src/repro/kernels/ssd_scan/ssd.py:58", ssd_stats),
+            ("fused_ce_stats", "cuda",
+             "src/repro_torch/kernels/fused_ce/csrc/fused_ce_stats.cu",
+             "src/repro/kernels/fused_ce/ce.py:67", ce_stats)):
         paths = {arch: n[name] for arch, n in by_path.items() if n[name]}
         kernels.append({
             "name": name, "route": route, "source": source,

@@ -3,6 +3,9 @@
 The JAX package's ``init_params`` returns a nested dict of arrays with the
 layers stacked on axis 0 (``blocks/attn/wq`` is (L, d, H, hd)) and ``None``
 for absent norm parameters (olmo's ``ln1``, ``ln2`` and ``final_norm``).
+A train state (``repro.training.state``) is that tree under ``params``, the
+AdamW moments of its structure under ``opt/m`` and ``opt/v``, the AdamW
+``opt/count`` and the ``step``.
 The port keeps the same tree: the same keys in the same order, the same
 ``None`` leaves, the same shapes, with tensors for arrays.  Numpy sits in
 between, so this module imports neither JAX nor anything of ``repro``:
@@ -71,3 +74,22 @@ def params_to_numpy(params: dict) -> dict:
         return t.numpy()
 
     return _map(params, leaf)
+
+
+def train_state_from_jax(tree: dict, cfg: ModelConfig, device="cpu") -> dict:
+    """The port's train state from a JAX train state of numpy arrays:
+    params, ``opt`` (``m``, ``v``, ``count``) and ``step``, bit for bit,
+    with the same keys, order and ``None`` leaves."""
+    if set(tree) != {"params", "opt", "step"}:
+        raise ValueError(f"a train state has params, opt and step; got "
+                         f"{sorted(tree)}")
+    def same(t):
+        return _map(t, lambda a, _key: _to_tensor(a, device, None))
+
+    return {key: params_from_jax(val, cfg, device) if key == "params"
+            else same(val) for key, val in tree.items()}
+
+
+def train_state_to_numpy(state: dict) -> dict:
+    """The port's train state as numpy arrays (see ``params_to_numpy``)."""
+    return params_to_numpy(state)

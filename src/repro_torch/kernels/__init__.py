@@ -6,11 +6,16 @@
 - ``ssd_scan`` — the Mamba2 SSD chunked scan; its intra-chunk step is in
   CUDA C++ (``csrc/ssd_intra_chunk.cu``), in place of the Pallas TPU kernel
   ``repro.kernels.ssd_scan.ssd.ssd_intra_chunk``.
+- ``fused_ce`` — streaming-vocab cross-entropy statistics (lse, label
+  logit) in CUDA C++ (``csrc/fused_ce_stats.cu``), in place of the Pallas
+  TPU kernel ``repro.kernels.fused_ce.ce.fused_ce_stats``.
 
 Each kernel directory has the CUDA source under ``csrc/``, its ctypes
 binding, ``ops.py`` (the public wrapper, same signature as the JAX one) and
 ``ref.py`` (the plain PyTorch version that CPU tensors take and that the
 tests and ``chip_smoke.py`` hold the kernel against).  ``_build.py``
-compiles the sources at first use.  The Pallas kernels ``fused_ce_stats``
-and ``fingerprint_u32`` are not ported yet (ROADMAP.md).
+compiles the sources at first use.  ``swa_attention`` and ``fused_ce``
+are autograd functions whose backward is plain PyTorch (the Pallas kernels
+have none).  The Pallas kernel ``fingerprint_u32`` is not ported yet
+(ROADMAP.md).
 """

@@ -1,7 +1,8 @@
-"""Model assembly for serving: the dense, SSM and hybrid families (port of
-the decode half of ``repro.models.model``).
+"""Model assembly: serving for the dense, SSM and hybrid families, training
+for the dense family (port of ``repro.models.model``).
 
 - ``init_params``       — parameter tree, layers stacked on axis 0 as in JAX
+- ``model_forward``     — training forward -> (loss, metrics) (dense only)
 - ``prefill_fn``        — prompt processing -> (last logits, decode state)
 - ``decode_step_fn``    — one-token decode with the KV and SSM caches
 - ``init_decode_state`` — cache allocation
@@ -19,8 +20,10 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.fused_ce import fused_cross_entropy
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import ssm as ssm_lib
@@ -74,13 +77,20 @@ def _stack(trees):
     return torch.stack(trees)
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of a stacked tree, as views."""
+def _unstack(tree, n: int):
+    """The ``n`` layers of a stacked tree, as views.
+
+    ``torch.unbind`` and not ``tree[i]`` per layer: under autograd the
+    gradient of an indexed layer is a zero tensor of the whole stack, so a
+    training step would fill and add L full-size f32 stacks per leaf;
+    unbind's backward stacks the L layer gradients once."""
     if tree is None:
-        return None
+        return [None] * n
     if isinstance(tree, dict):
-        return {key: _layer(val, i) for key, val in tree.items()}
-    return tree[i]
+        per_key = {key: _unstack(val, n) for key, val in tree.items()}
+        return [{key: layers[i] for key, layers in per_key.items()}
+                for i in range(n)]
+    return list(tree.unbind(0))
 
 
 def group_layout(cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -104,18 +114,18 @@ def _layers(cfg: ModelConfig, params: Dict):
     scans run them: ("attn", layer, i) for dense layer i; ("ssm", layer, i)
     for Mamba2 layer i; for hybrid, ("attn", shared block, g) after the
     layers of group g, then the tail layers."""
-    blocks = params["blocks"]
+    blocks = _unstack(params["blocks"], cfg.num_layers)
     if cfg.arch_type == "dense":
         for i in range(cfg.num_layers):
-            yield "attn", _layer(blocks, i), i
+            yield "attn", blocks[i], i
         return
     n, per, _ = group_layout(cfg)
     for g in range(n):
         for i in range(g * per, (g + 1) * per):
-            yield "ssm", _layer(blocks, i), i
+            yield "ssm", blocks[i], i
         yield "attn", params["shared_attn"], g
     for i in range(n * per, cfg.num_layers):
-        yield "ssm", _layer(blocks, i), i
+        yield "ssm", blocks[i], i
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device,
@@ -153,6 +163,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device,
 def _mlp_res(cfg: ModelConfig, block: Dict, x: torch.Tensor) -> torch.Tensor:
     h = apply_norm(cfg.norm, x, block["ln2"])
     return x + mlp_lib.mlp_forward(block["mlp"], h, cfg.mlp)
+
+
+def _dense_block(cfg: ModelConfig, block: Dict, x: torch.Tensor
+                 ) -> torch.Tensor:
+    h = apply_norm(cfg.norm, x, block["ln1"])
+    h = attn_lib.attention_forward(
+        block["attn"], h, num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads, rope_theta=cfg.rope_theta,
+        window=cfg.sliding_window)
+    return _mlp_res(cfg, block, x + h)
 
 
 def _lm_head(cfg: ModelConfig, params: Dict) -> torch.Tensor:
@@ -337,3 +357,68 @@ def prefill_fn(params: Dict, batch: Dict, cfg: ModelConfig,
     x = apply_norm(cfg.norm, x, params["final_norm"])
     logits = _logits(x[:, -1], _lm_head(cfg, params))
     return logits, state
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
+                          labels: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """CE without materialising the (B, S, V) logits; labels < 0 are
+    ignored.  Returns (sum_loss, token_count).
+
+    JAX scans over 128-token chunks of the sequence with the whole vocab
+    per chunk; here ``fused_cross_entropy`` streams the vocab instead (the
+    Pallas kernel's schedule): the CUDA kernel on the card, its plain
+    version on the CPU.  As in JAX, the head is rounded to the working
+    dtype and the products are summed in f32.
+    """
+    d = hidden.shape[-1]
+    return fused_cross_entropy(hidden.reshape(-1, d), head.to(hidden.dtype),
+                               labels.reshape(-1))
+
+
+def check_trainable(cfg: ModelConfig, remat: bool = True,
+                    remat_policy: str = "full") -> None:
+    if cfg.arch_type != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: training arch_type {cfg.arch_type!r} is not ported "
+            f"yet (ROADMAP M7; the ssm and hybrid training forward needs an "
+            f"SSD backward); the port trains the dense family")
+    if remat and remat_policy == "dots":
+        raise NotImplementedError(
+            "remat_policy 'dots' is not ported (ROADMAP P7); the port "
+            'recomputes whole layers ("full")')
+
+
+def model_forward(params: Dict, batch: Dict, cfg: ModelConfig,
+                  remat: bool = True, remat_policy: str = "full"
+                  ) -> Tuple[torch.Tensor, Dict]:
+    """Training forward of the dense family.  batch: tokens (B, S) and
+    labels (B, S) (< 0 = ignore).  Returns (mean loss, metrics dict).
+
+    With ``remat`` each layer runs under ``torch.utils.checkpoint`` (its
+    activations are recomputed in the backward), as JAX wraps the scanned
+    layer in ``jax.checkpoint``.  The dense family has no auxiliary loss.
+    """
+    check_trainable(cfg, remat, remat_policy)
+    dtype = torch_dtype(cfg.dtype)
+    x = params["embed"].to(dtype)[batch["tokens"]]
+    for _, block, _ in _layers(cfg, params):
+        if remat:
+            x = checkpoint(_dense_block, cfg, block, x, use_reentrant=False)
+        else:
+            x = _dense_block(cfg, block, x)
+    x = apply_norm(cfg.norm, x, params["final_norm"])
+    loss_sum, count = chunked_cross_entropy(x, _lm_head(cfg, params),
+                                            batch["labels"])
+    ce = loss_sum / torch.clamp(count, min=1.0)
+    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    return ce + aux, {"ce": ce, "aux": aux, "tokens": count}
+
+
+def loss_fn(params: Dict, batch: Dict, cfg: ModelConfig,
+            remat: bool = True) -> torch.Tensor:
+    return model_forward(params, batch, cfg, remat=remat)[0]

@@ -5,9 +5,20 @@ on a machine without it; there, skip the JAX-importing ``conftest.py``:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
+from repro_torch.bridge import train_state_from_jax, train_state_to_numpy
+from repro_torch.configs import get_smoke_config
+from repro_torch.configs.base import TrainConfig
+from repro_torch.data import DataPipeline
+from repro_torch.kernels.fused_ce import fused_cross_entropy
+from repro_torch.kernels.fused_ce.ce import fused_ce_stats, tile, vocab_splits
+from repro_torch.kernels.fused_ce.ref import (cross_entropy_ref,
+                                              fused_ce_stats_ref)
 from repro_torch.kernels.ssd_scan import ssd_chunked
 from repro_torch.kernels.ssd_scan.ref import (ssd_intra_chunk_ref,
                                               ssd_sequential_ref)
@@ -15,6 +26,7 @@ from repro_torch.kernels.ssd_scan.ssd import ssd_intra_chunk
 from repro_torch.kernels.swa_attention import swa_attention
 from repro_torch.kernels.swa_attention.ref import swa_attention_ref
 from repro_torch.kernels.swa_attention.swa import swa_flash
+from repro_torch.training import build_train_step, init_train_state
 
 
 def _card():
@@ -28,6 +40,10 @@ def _card():
     # bf16: the kernel and the plain version each round an f32 result to
     # bf16 once, so they may differ by one bf16 ulp: 2**-7 relative
     (4, 512, 16, 128, 0, torch.bfloat16, 2 ** -7),
+    # the training path's shapes: splice 1 (B 4) and splice 2 (B 2) at S
+    # 4096, where the kv-tile loop runs 32 times deeper than at S 512
+    (4, 4096, 16, 128, 0, torch.bfloat16, 2 ** -7),
+    (2, 4096, 16, 128, 0, torch.bfloat16, 2 ** -7),
     # f32: the same f32 arithmetic summed in another order
     (4, 512, 16, 128, 0, torch.float32, 2e-5),
     (2, 200, 3, 64, 96, torch.float32, 2e-5),
@@ -98,3 +114,171 @@ def test_ssd_chunked_on_card_matches_recurrence_and_continues():
                          initial_state=s1)
     torch.testing.assert_close(torch.cat([y1, y2], 1), y, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(s2, final, rtol=1e-4, atol=1e-4)
+
+
+def _ce_inputs(dev, t, d, v, dtype, seed=0, tied=True):
+    """hidden ~ N(0, 1) and head ~ 0.02 N(0, 1) (dense_init's scale), the
+    head as ``embed.T`` (strides (1, d)) when ``tied``; labels in [-1, V)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn(t, d, generator=g, device=dev).to(dtype)
+    if tied:
+        w = (0.02 * torch.randn(v, d, generator=g, device=dev)).to(dtype).T
+    else:
+        w = (0.02 * torch.randn(d, v, generator=g, device=dev)).to(dtype)
+    lab = torch.randint(-1, v, (t,), generator=g, device=dev)
+    return h, w, lab
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,d,v,dtype,tied", [
+    (16384, 2048, 50304, torch.bfloat16, True),   # olmo-1b, splice 1
+    (8192, 2048, 50304, torch.bfloat16, True),    # splice 2
+    (300, 256, 777, torch.float32, True),         # ragged T and V
+    (130, 64, 500, torch.float32, False),         # a contiguous (d, V) head
+    (256, 128, 1024, torch.bfloat16, False),
+    (100, 32, 512, torch.float32, True),
+])
+def test_fused_ce_stats_matches_plain_on_card(t, d, v, dtype, tied):
+    """lse and pick within 1e-4 of the plain version: both sum the same
+    f32 products (exact at bf16) in another order, over d <= 2048 terms of
+    logits about 1; labels outside [0, V) give pick = -1e30 in both."""
+    dev = _card()
+    h, w, lab = _ce_inputs(dev, t, d, v, dtype, tied=tied)
+    before = fused_ce_stats.launches
+    lse, pick = fused_ce_stats(h, w, lab)
+    torch.cuda.synchronize()
+    assert fused_ce_stats.launches == before + 1
+    want_lse, want_pick = fused_ce_stats_ref(h, w, lab)
+    assert lse.shape == pick.shape == (t, 1)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(pick, want_pick, rtol=1e-5, atol=1e-4)
+    assert (pick[lab < 0] == -1e30).all()
+
+
+@pytest.mark.cuda
+def test_fused_ce_stats_tiles_come_from_the_library():
+    """The library reports its tiles, and the split of olmo-1b's vocab at
+    splice 1 and 2 is the one tests/test_torch_fused_ce.py checks."""
+    _card()
+    assert tile(torch.bfloat16) == (128, 128)
+    assert tile(torch.float32) == (64, 64)
+    assert [vocab_splits(t, 50304, tile(torch.bfloat16), 132)
+            for t in (16384, 8192)] == [3, 5]
+
+
+@pytest.mark.cuda
+def test_fused_ce_stats_refuses_what_it_cannot_take():
+    dev = _card()
+    h, w, lab = _ce_inputs(dev, 64, 48, 100, torch.float32)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        fused_ce_stats(h, w, lab)
+    h, w, lab = _ce_inputs(dev, 64, 64, 100, torch.float32)
+    with pytest.raises(ValueError, match="both float32 or both bfloat16"):
+        fused_ce_stats(h.to(torch.bfloat16), w, lab)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_ce_stats(h.T.contiguous().T, w, lab)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.float32, 1e-5),    # the same f32 arithmetic in another order
+    (torch.bfloat16, 1e-2),   # dh rounds to bf16 in the port, not the plain
+])
+def test_fused_cross_entropy_gradients_on_card(dtype, tol):
+    """Loss and gradients in hidden and head through the autograd function
+    (the kernel forward, the chunked plain backward) against autograd
+    through the full-logits plain version, on the card."""
+    dev = _card()
+    h, w, lab = _ce_inputs(dev, 2 * 2048 + 72, 256, 1000, dtype, seed=1)
+    emb = w.T.detach().float().requires_grad_()
+    hh = h.detach().requires_grad_()
+    before = fused_ce_stats.launches
+    loss, count = fused_cross_entropy(hh, emb.T.to(dtype), lab)
+    loss.backward()
+    assert fused_ce_stats.launches == before + 1
+    emb2 = w.T.detach().float().requires_grad_()
+    hh2 = h.detach().requires_grad_()
+    want, want_count = cross_entropy_ref(hh2, emb2.T.to(dtype), lab)
+    want.backward()
+    assert count.item() == want_count.item()
+    torch.testing.assert_close(loss, want, rtol=1e-5, atol=0)
+    for got, ref in ((hh.grad, hh2.grad), (emb.grad, emb2.grad)):
+        scale = ref.float().abs().max()
+        torch.testing.assert_close(got.float() / scale, ref.float() / scale,
+                                   rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d,w,dtype,tol", [
+    (2, 512, 4, 128, 0, torch.float32, 1e-5),
+    (1, 300, 2, 64, 96, torch.float32, 1e-5),
+    # the kernel's bf16 output is one rounding away from the plain one's
+    (2, 512, 4, 128, 0, torch.bfloat16, 2e-2),
+])
+def test_swa_attention_gradients_on_card(b, s, h, d, w, dtype, tol):
+    """dq, dk, dv through the autograd function (the kernel forward, the
+    plain recomputing backward) against autograd through the plain
+    version; each to ``tol`` of the largest entry."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, k, v, do = (torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
+                   for _ in range(4))
+    ins = [x.detach().requires_grad_() for x in (q, k, v)]
+    before = swa_flash.launches
+    swa_attention(*ins, window=w).backward(do)
+    assert swa_flash.launches == before + 1
+    refs = [x.detach().requires_grad_() for x in (q, k, v)]
+    swa_attention_ref(*(x.transpose(1, 2) for x in refs),
+                      window=w).transpose(1, 2).backward(do)
+    for got, ref in zip(ins, refs):
+        assert got.grad.dtype == dtype
+        scale = ref.grad.float().abs().max()
+        torch.testing.assert_close(got.grad.float() / scale,
+                                   ref.grad.float() / scale, rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_smoke_train_step_card_matches_cpu():
+    """One spliced step (splice 2) of the olmo smoke config at f32 from one
+    state on the card and on the CPU: loss at 1e-5; m and v at 1e-5 of each
+    leaf's largest entry; params at 1e-3 lr where the gradient is at least
+    1e-6 and 2 lr elsewhere (AdamW's first step moves an entry whose
+    gradient is near eps by an amount resting on the gradient's last
+    bits; see ``tests/test_torch_train.py``)."""
+    dev = _card()
+    cfg = dataclasses.replace(get_smoke_config("olmo-1b"), dtype="float32")
+    tcfg = TrainConfig(total_steps=40, warmup_steps=2, learning_rate=1e-3)
+    cpu_state = init_train_state(cfg, tcfg, device="cpu")
+    card_state = train_state_from_jax(train_state_to_numpy(cpu_state), cfg,
+                                      device=dev)
+    tokens, labels = DataPipeline(cfg.vocab_size, 64, 4, 4).next_batch()
+    step = build_train_step(cfg, tcfg, splice=2)
+    out = {}
+    for name, state, device in (("cpu", cpu_state, "cpu"),
+                                ("card", card_state, dev)):
+        batch = {"tokens": torch.as_tensor(tokens, device=device).long(),
+                 "labels": torch.as_tensor(labels, device=device).long()}
+        new, metrics = step(state, batch)
+        out[name] = (train_state_to_numpy(new), metrics["loss"].item(),
+                     metrics["lr"].item())
+    (cpu_new, cpu_loss, lr), (card_new, card_loss, _) = out["cpu"], out["card"]
+    np.testing.assert_allclose(card_loss, cpu_loss, rtol=1e-5)
+
+    def leaves(t):
+        if isinstance(t, dict):
+            return [x for val in t.values() for x in leaves(val)]
+        return [] if t is None else [t]
+
+    for part in ("m", "v"):
+        for a, b in zip(leaves(card_new["opt"][part]),
+                        leaves(cpu_new["opt"][part])):
+            scale = np.abs(b).max()
+            np.testing.assert_allclose(a / scale, b / scale, rtol=0,
+                                       atol=1e-5)
+    for a, b, m in zip(leaves(card_new["params"]), leaves(cpu_new["params"]),
+                       leaves(cpu_new["opt"]["m"])):
+        # as tests/test_torch_train.py's assert_first_adamw_step_close
+        firm = np.abs(m) / (1 - tcfg.beta1) >= 1e-6
+        assert 1 - firm.mean() < 0.05
+        np.testing.assert_allclose(a[firm], b[firm], rtol=0, atol=1e-3 * lr)
+        np.testing.assert_allclose(a[~firm], b[~firm], rtol=0, atol=0.2 * lr)

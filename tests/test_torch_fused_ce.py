@@ -1,0 +1,200 @@
+"""The port's fused cross-entropy and attention gradients against the JAX
+package, on the CPU.
+
+- ``fused_ce_stats_ref`` / ``fused_cross_entropy`` against the Pallas
+  ``fused_ce_stats`` (interpret mode) and the JAX ``fused_cross_entropy``
+  at the shapes of ``tests/test_kernels.py`` (rtol 1e-5, its bound);
+- the CE gradients in hidden and head against ``jax.grad`` of the JAX
+  model's ``chunked_cross_entropy``;
+- the attention autograd function's dq, dk, dv against ``jax.grad`` of
+  ``blockwise_attention``.
+
+Inputs come from numpy seeds.  f32 cases compare at the bounds stated
+with each test; the bf16 cases at a looser one, also stated.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.fused_ce.ce import fused_ce_stats as jax_fused_ce_stats
+from repro.kernels.fused_ce.ops import fused_cross_entropy as jax_fused_ce
+from repro.models.attention import blockwise_attention
+from repro.models.model import chunked_cross_entropy as jax_chunked_ce
+from repro_torch.kernels.fused_ce import fused_cross_entropy
+from repro_torch.kernels.fused_ce.ce import fused_ce_stats, vocab_splits
+from repro_torch.kernels.fused_ce.ref import (cross_entropy_ref,
+                                              fused_ce_stats_ref)
+from repro_torch.kernels.swa_attention import swa_attention
+from repro_torch.models.model import chunked_cross_entropy
+
+SHAPES = [(100, 64, 500), (256, 128, 1024), (130, 32, 777), (128, 64, 512)]
+
+
+def _ce_inputs(t, d, v, seed, low=-1):
+    """hidden ~ N(0, 1), head ~ 0.05 N(0, 1), labels in [low, v)
+    (-1 = ignored), as tests/test_kernels.py draws them."""
+    rng = np.random.default_rng(seed)
+    h = rng.standard_normal((t, d), dtype=np.float32)
+    w = (0.05 * rng.standard_normal((d, v))).astype(np.float32)
+    lab = rng.integers(low, v, (t,), dtype=np.int32)
+    return h, w, lab
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+@pytest.mark.parametrize("t,d,v", SHAPES)
+def test_fused_cross_entropy_matches_jax(t, d, v):
+    h, w, lab = _ce_inputs(t, d, v, seed=t + v)
+    loss, count = fused_cross_entropy(_t(h), _t(w), _t(lab))
+    jl, jc = jax_fused_ce(jnp.asarray(h), jnp.asarray(w), jnp.asarray(lab))
+    assert count.item() == float(jc) == float((lab >= 0).sum())
+    np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-5)
+    rl, rc = cross_entropy_ref(_t(h), _t(w), _t(lab))
+    assert rc.item() == count.item()
+    np.testing.assert_allclose(rl.item(), float(jl), rtol=1e-5)
+
+
+@pytest.mark.parametrize("t,d,v", [s for s in SHAPES if s[0] % 128 == 0])
+def test_fused_ce_stats_ref_matches_pallas(t, d, v):
+    """The plain version against the Pallas kernel run in interpret mode
+    (which takes T a multiple of 128), labels in [0, V) as the JAX wrapper
+    passes them; lse and pick at rtol 1e-5."""
+    h, w, lab = _ce_inputs(t, d, v, seed=7 * t, low=0)
+    lse, pick = fused_ce_stats_ref(_t(h), _t(w), _t(lab))
+    jlse, jpick = jax_fused_ce_stats(jnp.asarray(h), jnp.asarray(w),
+                                     jnp.asarray(lab))
+    assert lse.shape == pick.shape == (t, 1) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), rtol=1e-5)
+    np.testing.assert_allclose(pick.numpy(), np.asarray(jpick), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_fused_ce_stats_ref_label_outside_vocab():
+    """pick is -1e30 (the kernel's start value) for a label outside [0, V)."""
+    h, w, lab = _ce_inputs(8, 32, 40, seed=3, low=0)
+    lab[:3] = [-1, 40, 1000]
+    _, pick = fused_ce_stats_ref(_t(h), _t(w), _t(lab))
+    assert (pick[:3, 0] == -1e30).all() and (pick[3:, 0] > -1e29).all()
+
+
+def test_fused_cross_entropy_bf16_matches_jax():
+    """bf16 hidden and head (test_kernels.py's bf16 case): both sides widen
+    to f32 and sum exact products, so only the order of f32 sums differs;
+    the bound is test_kernels.py's 2e-2 against the f32 oracle."""
+    h, w, lab = _ce_inputs(128, 64, 512, seed=11, low=0)
+    hb, wb = _t(h).to(torch.bfloat16), _t(w).to(torch.bfloat16)
+    loss, _ = fused_cross_entropy(hb, wb, _t(lab))
+    jl, _ = jax_fused_ce(jnp.asarray(h, jnp.bfloat16),
+                         jnp.asarray(w, jnp.bfloat16), jnp.asarray(lab))
+    np.testing.assert_allclose(loss.item(), float(jl), rtol=2e-2)
+    want, _ = cross_entropy_ref(_t(h), _t(w), _t(lab))
+    np.testing.assert_allclose(loss.item(), want.item(), rtol=2e-2)
+
+
+@pytest.mark.parametrize("b,s,d,v,dtype,tol", [
+    # f32: the same f32 arithmetic in another order
+    (2, 64, 32, 500, "float32", 1e-5),
+    (1, 200, 64, 777, "float32", 1e-5),   # ragged: JAX pads to its chunk
+    # bf16: JAX's gradient of the bf16 einsum rounds at other places than
+    # the port's f32 backward; 2e-2 of the largest gradient entry
+    (2, 64, 64, 512, "bfloat16", 2e-2),
+])
+def test_ce_gradients_match_jax_grad(b, s, d, v, dtype, tol):
+    rng = np.random.default_rng(b * s + v)
+    h = rng.standard_normal((b, s, d), dtype=np.float32)
+    w = (0.05 * rng.standard_normal((d, v))).astype(np.float32)
+    lab = rng.integers(-1, v, (b, s), dtype=np.int32)
+    tdt = getattr(torch, dtype)
+
+    ht = _t(h).to(tdt).requires_grad_()
+    wt = _t(w).requires_grad_()      # f32 master, rounded inside as in JAX
+    loss, count = chunked_cross_entropy(ht, wt, _t(lab))
+    loss.backward()
+
+    def f(hh, ww):
+        return jax_chunked_ce(hh, ww, jnp.asarray(lab))[0]
+
+    jl, (jgh, jgw) = jax.value_and_grad(f, argnums=(0, 1))(
+        jnp.asarray(h, getattr(jnp, dtype)), jnp.asarray(w))
+    assert count.item() == float((lab >= 0).sum())
+    np.testing.assert_allclose(loss.item(), float(jl), rtol=max(tol, 1e-5))
+    for got, want in ((ht.grad, jgh), (wt.grad, jgw)):
+        assert got.dtype == (tdt if got is ht.grad else torch.float32)
+        want = np.asarray(want, np.float32)
+        scale = np.abs(want).max()
+        np.testing.assert_allclose(got.float().numpy() / scale, want / scale,
+                                   rtol=0, atol=tol)
+
+
+def test_ce_gradient_reads_a_transposed_head():
+    """Tied embeddings: the head is embed.T, a (d, V) view with strides
+    (1, d); the loss and both gradients equal those of a contiguous copy."""
+    h, w, lab = _ce_inputs(64, 32, 100, seed=5)
+    emb = _t(w.T.copy()).requires_grad_()
+    head = emb.T
+    assert head.stride() == (1, 32)
+    hh = _t(h).requires_grad_()
+    loss, _ = fused_cross_entropy(hh, head, _t(lab))
+    loss.backward()
+    emb2 = _t(w.T.copy()).requires_grad_()
+    hh2 = _t(h).requires_grad_()
+    loss2, _ = fused_cross_entropy(hh2, emb2.T.contiguous(), _t(lab))
+    loss2.backward()
+    assert loss.item() == loss2.item()
+    torch.testing.assert_close(emb.grad, emb2.grad, rtol=1e-6, atol=1e-7)
+    torch.testing.assert_close(hh.grad, hh2.grad, rtol=1e-6, atol=1e-7)
+
+
+def test_fused_ce_stats_wrapper_refuses_cpu_tensors():
+    """The kernel's wrapper launches on CUDA tensors only: it never takes
+    the plain version itself."""
+    h, w, lab = _ce_inputs(8, 32, 40, seed=0, low=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_ce_stats(_t(h), _t(w), _t(lab))
+
+
+@pytest.mark.parametrize("t,v,want", [
+    (16384, 50304, 3),   # olmo-1b, splice 1: 128 row tiles, 3 ranges
+    (8192, 50304, 5),    # splice 2: 64 row tiles
+    (128, 512, 4),       # never more ranges than vocab tiles
+])
+def test_vocab_splits_fill_the_card(t, v, want):
+    """At the kernel's bf16 tile of 128 tokens x 128 vocab columns (the
+    library reports it; tests/test_torch_cuda.py checks that on the card)."""
+    assert vocab_splits(t, v, (128, 128), sms=132) == want
+
+
+@pytest.mark.parametrize("b,s,h,d,window,dtype,tol", [
+    # f32: the same softmax, recomputed, in another order of sums
+    (2, 48, 4, 32, 0, "float32", 1e-5),
+    (1, 70, 2, 64, 24, "float32", 1e-5),
+    # bf16: blockwise_attention scales q in bf16 and rounds its blocks'
+    # products at other places than the port's f32 recomputation; 3e-2 of
+    # the largest gradient entry
+    (2, 48, 4, 32, 0, "bfloat16", 3e-2),
+])
+def test_attention_gradients_match_jax_grad(b, s, h, d, window, dtype, tol):
+    rng = np.random.default_rng(s + window)
+    q, k, v, do = (rng.standard_normal((b, s, h, d), dtype=np.float32)
+                   for _ in range(4))
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    qt, kt, vt = (_t(x).to(tdt).requires_grad_() for x in (q, k, v))
+    out = swa_attention(qt, kt, vt, window=window)
+    out.backward(_t(do).to(tdt))
+
+    def f(qq, kk, vv):
+        o = blockwise_attention(qq, kk, vv, causal=True, window=window)
+        return jnp.sum(o.astype(jnp.float32) * jnp.asarray(do))
+
+    grads = jax.grad(f, argnums=(0, 1, 2))(
+        *(jnp.asarray(x, jdt) for x in (q, k, v)))
+    for got, want in zip((qt.grad, kt.grad, vt.grad), grads):
+        assert got.dtype == tdt and got.shape == (b, s, h, d)
+        want = np.asarray(want, np.float32)
+        scale = np.abs(want).max()
+        np.testing.assert_allclose(got.float().numpy() / scale, want / scale,
+                                   rtol=0, atol=tol)

@@ -5,9 +5,10 @@
 
 Phases, each of which raises on failure (the exit code is then non-zero):
 
-1. Print the card (``nvidia-smi``), build the hand-written CUDA kernels
-   from the repository's sources (one ``nvcc`` per source, all started
-   together) and print the build time and the compiler's register report.
+1. Print the card (``nvidia-smi``) and the host's memory, build the four
+   hand-written CUDA kernels from the repository's sources (one ``nvcc``
+   per source, all started together) and print the build time and the
+   compiler's register report.
 2. Hold ``swa_flash`` against its plain PyTorch version on the card at the
    olmo serving shape (bf16 and f32), at two ragged/windowed shapes and
    at the olmo-1b training shapes (B 4 and 2, S 4096, bf16), then time the kernel, the plain version and PyTorch's
@@ -26,6 +27,14 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    time the kernel and the plain version beside the kernel's bound, with
    cuBLAS's time for the bare ``h @ W`` GEMM printed for context (no
    PyTorch call computes (lse, pick)).
+2d. Hold ``fingerprint_u32`` against its plain version bit for bit at the
+   shapes of ``tests/test_kernels.py``, a bf16 and an f16 array, a length
+   that is not a multiple of the 32,768-word block (also through a view
+   that is not 16-byte aligned), an int64 array, the 4 MB array of
+   ``benchmarks/kernels_bench.py`` and olmo-1b's largest leaf (1 GiB of
+   f32); time it at the last two beside its bound, the plain version and
+   ``torch.sum`` over the same int32 words (one read of the bytes; no
+   PyTorch call computes the digest).
 3. Drive the port's serving paths at full width, each through
    ``ServingEngine``, which generates 32 greedy tokens for 4 prompts of
    512 with random weights from seed 0: olmo-1b (16 layers, d_model 2048,
@@ -53,7 +62,23 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    one state at full width with 4 layers.
 4b. f32, card against CPU: one training step of the olmo smoke config
    from one bridged state on each device; loss, moments and parameters.
-5. Print the ``kernels`` JSON line, the card's name and power limit, and as
+5. Take phase 4's olmo-1b job (world 4, at splice 2) through the paper's
+   preemption and migration flow, the path ``olmo-1b-migrate``, counts set
+   to 0 just before and read just after: a preemption request quiesces it
+   through the barrier carried by the step (within 2 steps); every leaf of
+   its state is fingerprinted on the card (26 ``fingerprint_u32``, only the
+   digests cross to the host); ``migrate`` dumps it into a content-deduped
+   store for its 4 workers, models the transfer and restores it on a new
+   runtime at 4 physical devices; the restored state's 26 digests must
+   equal the source's, the resume be work-conserving and the stored device
+   bytes at most the logical bytes / W (Table 4); one step on each runtime
+   at splice 1 must give the same loss within 1e-6 relative (and says
+   whether it is equal to the bit, and which leaves of the two states
+   after that step differ: a check of the step's determinism, outside the
+   path's count).  It prints Table 5's components, the stored bytes, the
+   per-GB host rates of the dump's and restore's steps, and the host's and
+   the card's peak memory.
+6. Print the ``kernels`` JSON line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 It imports no JAX and nothing of the JAX package ``repro``.
@@ -115,11 +140,12 @@ CE_TOL = dict(rtol=1e-5, atol=1e-4)
 BATCH, PROMPT, NEW_TOKENS = 4, 512, 32
 # the serving paths, each with its kernels' launches per prefill
 PATHS = [
-    ("olmo-1b", {"swa_flash": 16, "ssd_intra_chunk": 0, "fused_ce_stats": 0}),
+    ("olmo-1b", {"swa_flash": 16, "ssd_intra_chunk": 0, "fused_ce_stats": 0,
+                 "fingerprint_u32": 0}),
     ("mamba2-130m", {"swa_flash": 0, "ssd_intra_chunk": 24,
-                     "fused_ce_stats": 0}),
+                     "fused_ce_stats": 0, "fingerprint_u32": 0}),
     ("zamba2-1.2b", {"swa_flash": 6, "ssd_intra_chunk": 38,
-                     "fused_ce_stats": 0}),
+                     "fused_ce_stats": 0, "fingerprint_u32": 0}),
 ]
 
 # olmo-1b training: logical world 4, global batch 4 x 4096 (the repo's
@@ -132,6 +158,19 @@ TRAIN_PATH = "olmo-1b train"
 # is weak on the attention, a small term of the residual at 0.02-scale
 # init; phase 2 holds swa_flash itself at the training shapes.
 TRAIN_TOL = dict(loss=1e-4, grad_norm=1e-4)
+
+# fingerprint_u32 vs plain version, bit for bit: (shape, dtype name)
+FP_CASES = [
+    ((1000,), "float32"), ((64, 128), "bfloat16"), ((7, 11, 13), "int32"),
+    ((100_000,), "float32"), ((3, 5), "float32"), ((256, 128), "uint8"),
+    ((4096, 7), "bfloat16"), ((33, 7), "float16"), ((40_000,), "float32"),
+    ((3000,), "int64"), ((1 << 20,), "float32"),
+    ((16, 2048, 8192), "float32"),   # olmo-1b's opt/m/blocks/mlp/wg
+]
+FP_TIMED = [(1 << 20,), (16, 2048, 8192)]
+# integer instructions per word of the digest (csrc/fingerprint_u32.cu)
+FP_OPS_PER_WORD = 10
+MIGRATE_PATH = "olmo-1b-migrate"
 
 
 def card_line() -> str:
@@ -362,6 +401,86 @@ def _ce_inputs(torch, gen, t, d, v, dtype, tied):
     return h, w, lab
 
 
+def fingerprint_bound(n_words: int, padded: int):
+    """Least time for ``fingerprint_u32`` on an H100 SXM: the words read
+    once and the 16-byte digest written once over the HBM rate, against
+    ``FP_OPS_PER_WORD`` 32-bit integer instructions per padded word over
+    the integer multiply-add rate.  Returns (ms, "bytes" | "operations")."""
+    from repro_torch.utils import constants
+
+    return _bound((4 * n_words + 16) / constants.DATASHEET_HBM_BANDWIDTH,
+                  FP_OPS_PER_WORD * padded / constants.DATASHEET_INT32_OPS)
+
+
+def _fp_input(torch, gen, shape, dname):
+    dtype = getattr(torch, dname)
+    if dtype.is_floating_point:
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    hi = 256 if dtype == torch.uint8 else 2 ** 31 - 1
+    x = torch.randint(0, hi, shape, generator=gen, device="cuda").to(dtype)
+    return x * (2 ** 20) - 7 if dtype == torch.int64 else x
+
+
+def phase_fingerprint_kernel(torch, fingerprint_u32, fp_ops, fp_ref):
+    print("\n== phase 2d: fingerprint_u32 against its plain version on the "
+          "card, bit for bit", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def check(x, label):
+        before = fingerprint_u32.launches
+        got = fp_ops.fingerprint(x)
+        torch.cuda.synchronize()
+        if fingerprint_u32.launches != before + 1:
+            raise AssertionError(f"{label}: the kernel did not launch once")
+        want = fp_ref.fingerprint_u32_ref(fp_ops._as_words(x))
+        if got.dtype != torch.uint32 or got.shape != (4,):
+            raise AssertionError(f"{label}: digest {got.dtype} {got.shape}")
+        err = (got.to(torch.int64) - want.to(torch.int64)).abs().max().item()
+        print(f"{label}: kernel {got.tolist()} plain {want.tolist()}, max "
+              f"|diff| {err}", flush=True)
+        if err != 0:
+            raise AssertionError(f"{label}: the kernel and the plain version "
+                                 f"differ")
+        return err
+
+    worst = 0
+    for shape, dname in FP_CASES:
+        x = _fp_input(torch, gen, shape, dname)
+        worst = max(worst, check(x, f"{shape} {dname}"))
+        if shape == (40_000,):
+            # a view 4 bytes into the buffer: not 16-byte aligned, so the
+            # kernel takes its scalar loads
+            worst = max(worst, check(x[1:], f"{shape} {dname} [1:] view"))
+        del x
+    torch.cuda.empty_cache()
+
+    times = {}
+    for shape in FP_TIMED:
+        x = _fp_input(torch, gen, shape, "float32")
+        words = fp_ops._flat_words(x)
+        padded = fp_ops._as_words(x)
+        n = words.numel()
+        iters = 200 if n < 1 << 24 else 20
+        kernel_ms = time_ms(torch, lambda: fp_ops.fingerprint(x), iters)
+        plain_ms = time_ms(torch, lambda: fp_ref.fingerprint_u32_ref(padded),
+                           max(2, iters // 20), 1)
+        sum_ms = time_ms(torch, lambda: words.view(torch.int32).sum(), iters)
+        kernel_ms_2 = time_ms(torch, lambda: fp_ops.fingerprint(x), iters)
+        bound_ms, bound_by = fingerprint_bound(n, padded.numel())
+        print(f"times at {shape} f32 ({4 * n} bytes; mean of back-to-back "
+              f"launches): kernel {kernel_ms!r} ms then {kernel_ms_2!r} ms "
+              f"({4 * n / (kernel_ms / 1e3) / 1e12!r} TB/s), plain "
+              f"{plain_ms!r} ms, torch.sum over the int32 words {sum_ms!r} "
+              f"ms, bound {bound_ms!r} ms ({bound_by})", flush=True)
+        times[shape] = dict(ms=(kernel_ms + kernel_ms_2) / 2,
+                            plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=sum_ms)
+        del x, words, padded
+        torch.cuda.empty_cache()
+    # the kernels line: olmo-1b's largest leaf, the main path's costliest
+    return dict(times[FP_TIMED[-1]], max_abs_err=worst)
+
+
 def phase_ce_kernel(torch, ce, ce_ref, fused_cross_entropy):
     print("\n== phase 2c: fused_ce_stats against its plain version on the "
           "card", flush=True)
@@ -473,7 +592,8 @@ def _first_batch_grads(torch, rt, loss_and_grads, global_norm):
 
 def phase_train(torch, card, counters, swa_attention, swa_attention_ref):
     """olmo-1b training at full width through ElasticRuntime; returns the
-    main path's launch counts."""
+    main path's launch counts, the runtime (at splice 2) and its mean step
+    time at splice 2 in seconds."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core.elastic import ElasticRuntime
@@ -569,7 +689,7 @@ def phase_train(torch, card, counters, swa_attention, swa_attention_ref):
                     for name, fn in counters.items()}
         s = rec["splice"]
         want = {"swa_flash": 2 * cfg.num_layers * s, "ssd_intra_chunk": 0,
-                "fused_ce_stats": s}
+                "fused_ce_stats": s, "fingerprint_u32": 0}
         share = 6 * n_params * tokens_per_step / (ms / 1e3) / \
             _peak_flops(torch, torch.bfloat16)
         print(f"[{card}] step {rec['step']} splice {s}: {ms!r} ms, "
@@ -582,7 +702,7 @@ def phase_train(torch, card, counters, swa_attention, swa_attention_ref):
                                  f"splice {s}, saw {launched}")
         if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])):
             raise AssertionError(f"non-finite metrics {rec}")
-        records.append(rec)
+        records.append(dict(rec, ms=ms))
     launches = {name: fn.launches for name, fn in counters.items()}
     print(f"launches over the {steps} steps: {launches}", flush=True)
 
@@ -596,7 +716,7 @@ def phase_train(torch, card, counters, swa_attention, swa_attention_ref):
 
     _profile(torch, f"training step at splice {rt.splice} (olmo-1b, "
              f"{tokens_per_step} tokens)", lambda: rt.run_steps(1), top=12)
-    del rt
+    step_s = np.mean([r["ms"] for r in records if r["splice"] == 2]) / 1e3
     torch.cuda.empty_cache()
 
     # splice invariance from one state at full width with 4 layers: two
@@ -617,7 +737,7 @@ def phase_train(torch, card, counters, swa_attention, swa_attention_ref):
         raise AssertionError("splice 1 and splice 2 disagree")
     del state
     torch.cuda.empty_cache()
-    return launches
+    return launches, rt, float(step_s)
 
 
 def phase_train_f32():
@@ -689,6 +809,217 @@ def phase_train_f32():
           f"{1e-3 * lr!r}), {loose_diff!r} = {loose_diff / lr!r} lr where "
           f"|g| < 1e-6 (bound 0.2 lr); share with |g| < 1e-6 per leaf "
           f"{[f'{x:.4g}' for x in shares]} (bound 0.05)", flush=True)
+
+
+def _host_memory() -> dict:
+    """MemTotal and MemAvailable of the host (/proc/meminfo), in bytes."""
+    out = {}
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        key, val = line.split(":")
+        if key in ("MemTotal", "MemAvailable"):
+            out[key] = int(val.split()[0]) * 1024
+    return out
+
+
+def _peak_rss() -> int:
+    """This process's peak resident memory so far, in bytes."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def _digests(torch, fingerprint, tree_flatten, state):
+    """Each leaf's 128-bit digest, computed on the card in the manifest's
+    (JAX's) leaf order; only the digests come to the host.  Returns the
+    digests and their device time in ms."""
+    leaves, paths = tree_flatten(state)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    ds = torch.stack([fingerprint(leaf) for leaf in leaves])
+    end.record()
+    torch.cuda.synchronize()
+    digests = {"/".join(p): "".join(f"{v:08x}" for v in d)
+               for p, d in zip(paths, ds.cpu().tolist())}
+    return digests, start.elapsed_time(end)
+
+
+def _host_rates(torch, leaf):
+    """Seconds per GB of each host step of the dump and the restore, on one
+    leaf of the state (``leaf``, on the card), as the store does them:
+    card to host, ``np.save`` into memory, 1 MiB slices, blake2b of each,
+    then the join, ``np.load`` and the host copy and card upload of
+    ``ElasticRuntime.from_snapshot``."""
+    import io
+
+    from repro_torch.core.checkpoint import CHUNK
+    from repro_torch.utils.hashing import chunk_checksums
+
+    secs = {}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        t1 = time.perf_counter()
+        secs[name] = t1 - t0
+        t0 = t1
+
+    arr = leaf.cpu().numpy()
+    lap("card to host")
+    buf = io.BytesIO()
+    np.save(buf, arr, allow_pickle=False)
+    data = buf.getvalue()
+    del buf
+    lap("np.save")
+    pieces = [data[i:i + CHUNK] for i in range(0, len(data), CHUNK)]
+    lap("1 MiB slices")
+    for piece in pieces:
+        chunk_checksums(piece, len(piece))
+    lap("blake2b")
+    joined = b"".join(pieces)
+    lap("join")
+    back = np.load(io.BytesIO(joined), allow_pickle=False)
+    lap("np.load")
+    torch.from_numpy(back.copy()).to("cuda")
+    torch.cuda.synchronize()
+    lap("host copy and card upload")
+    return {k: v / arr.nbytes * 1e9 for k, v in secs.items()}
+
+
+def phase_migrate(torch, card, counters, job, step_s):
+    """Phase 4's job (``job``, a list holding the only reference to its
+    runtime) through preemption, checkpoint and migration; returns the
+    path's launch counts."""
+    from repro_torch.core import CheckpointStore, migrate
+    from repro_torch.kernels.checksum import fingerprint
+    from repro_torch.utils import constants
+    from repro_torch.utils.tree import tree_flatten
+
+    print(f"\n== phase 5: {MIGRATE_PATH}: preempt, dump, move and resume "
+          f"phase 4's olmo-1b job", flush=True)
+    rt = job.pop()
+    world, gb, seq = TRAIN["world"], TRAIN["batch"], TRAIN["seq"]
+    cfg, tcfg = rt.cfg, rt.tcfg
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_flatten(rt.state)[0])
+    print(f"job at step {int(rt.state['step'])}, splice {rt.splice}, world "
+          f"{world}; state {state_bytes} bytes in "
+          f"{len(tree_flatten(rt.state)[0])} leaves; host {_host_memory()}, "
+          f"peak RSS so far {_peak_rss()} bytes", flush=True)
+
+    # the main path: counts to 0 just before, read just after
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    rt.request_preemption()
+    recs = rt.run_steps(4, stop_on_barrier=True)
+    if not (len(recs) <= 2 and rt.quiesced):
+        raise AssertionError(f"not quiesced within 2 steps: {recs}")
+    splice_quiesce = rt.splice
+    print(f"quiesced after {len(recs)} steps at splice {rt.splice} (barrier "
+          f"acquired {[r['barrier_acquired'] for r in recs]}), step "
+          f"{int(rt.state['step'])}", flush=True)
+
+    before, fp_ms = _digests(torch, fingerprint, tree_flatten, rt.state)
+    print(f"digested the {len(before)} leaves on the card in {fp_ms!r} ms "
+          f"(device time of the {len(before)} launches)", flush=True)
+
+    store = CheckpointStore()
+    rss0 = _peak_rss()
+    t0 = time.perf_counter()
+    new_rt, report = migrate(rt, store, MIGRATE_PATH, 4, cfg, tcfg, gb, seq,
+                             per_step_seconds=step_s, device="cuda")
+    wall = time.perf_counter() - t0
+    manifest = store.manifests[MIGRATE_PATH][-1]
+    logical = sum(len(store.chunks[c])
+                  for entry in manifest["workers"].values()
+                  for refs in entry["device"] for c in refs)
+    print(f"[{card}] MigrationReport: barrier {report.barrier_seconds!r} s "
+          f"({report.barrier_minibatches} mini-batches x {step_s!r} s, the "
+          f"protocol engine's count), dump {report.dump_seconds!r} s, upload "
+          f"{report.upload_seconds!r} s and download "
+          f"{report.download_seconds!r} s (modelled: "
+          f"{report.device_stored_bytes + report.host_stored_bytes} bytes at "
+          f"the paper's {constants.BLOB_STORE_BANDWIDTH!r} B/s), restore "
+          f"{report.restore_seconds!r} s, total {report.total_seconds!r} s; stored device bytes "
+          f"{report.device_stored_bytes} of {logical} logical over "
+          f"{world} workers, host bytes {report.host_stored_bytes}, store "
+          f"{store.stored_bytes()} bytes; migrate() wall {wall!r} s; peak "
+          f"RSS {_peak_rss()} bytes (was {rss0})", flush=True)
+    if not report.work_conserving:
+        raise AssertionError("the migration lost work")
+    if not report.device_stored_bytes <= logical / world:
+        raise AssertionError(f"stored {report.device_stored_bytes} > logical "
+                             f"{logical} / {world}")
+    if new_rt.splice != 1 or int(new_rt.state["step"]) != \
+            int(rt.state["step"]):
+        raise AssertionError("the destination is not at the source's step")
+
+    after, fp_ms_2 = _digests(torch, fingerprint, tree_flatten, new_rt.state)
+    differ = [k for k in before if before[k] != after.get(k)]
+    print(f"destination's {len(after)} digests in {fp_ms_2!r} ms; equal to "
+          f"the source's: {not differ and len(after) == len(before)}; "
+          f"embed {after['params/embed']}, step {after['step']}", flush=True)
+    if differ or len(after) != len(before):
+        raise AssertionError(f"leaves changed by the migration: {differ}")
+
+    # where the dump's and the restore's time goes: each host step's rate
+    # on the largest leaf, and the sums those rates give for the whole
+    # state (4 workers hashed and 4 trees restored, as the store does)
+    del store, manifest
+    rates = _host_rates(torch,
+                        new_rt.state["opt"]["m"]["blocks"]["mlp"]["wg"])
+    state_gb = state_bytes / 1e9
+    dump_model = state_gb * (rates["card to host"] + world * (
+        rates["np.save"] + rates["1 MiB slices"] + rates["blake2b"]))
+    restore_model = state_gb * (world * (rates["join"] + rates["np.load"])
+                                + rates["host copy and card upload"])
+    print(f"host steps on the 1 GiB leaf, s per GB: "
+          f"{ {k: round(v, 4) for k, v in rates.items()} }; for the state "
+          f"they give dump {dump_model!r} s (measured "
+          f"{report.dump_seconds!r}), restore {restore_model!r} s "
+          f"(measured {report.restore_seconds!r})", flush=True)
+
+    # one step on each runtime at the same splice, from the same state and
+    # the same data cursor; the source's buffers are freed before the
+    # destination's step.  The states after the step are digested too, to
+    # show whether the whole step (backward and AdamW included) is
+    # deterministic on the card; those 52 digests are a check, not the
+    # path, and are taken out of its count.
+    rt.barrier.reset()
+    rt.resize(new_rt.physical)
+    loss_src = rt.run_steps(1)[0]["loss"]
+    checks = counters["fingerprint_u32"].launches
+    src_next, _ = _digests(torch, fingerprint, tree_flatten, rt.state)
+    checks = counters["fingerprint_u32"].launches - checks
+    del rt
+    torch.cuda.empty_cache()
+    loss_dst = new_rt.run_steps(1)[0]["loss"]
+    launches = {name: fn.launches for name, fn in counters.items()}
+    launches["fingerprint_u32"] -= checks
+    dst_next, _ = _digests(torch, fingerprint, tree_flatten, new_rt.state)
+    rel = abs(loss_src - loss_dst) / abs(loss_src)
+    print(f"one step at splice {new_rt.splice} on each: source loss "
+          f"{loss_src!r}, destination {loss_dst!r}, rel diff {rel!r} (bound "
+          f"1e-6); equal to the bit: {loss_src == loss_dst}", flush=True)
+    differ = [k for k in src_next if src_next[k] != dst_next[k]]
+    print(f"the states after that step: "
+          f"{len(src_next) - len(differ)} of {len(src_next)} leaves equal "
+          f"to the bit; differing (run-to-run order of the card's sums): "
+          f"{differ}", flush=True)
+    if not rel <= 1e-6:
+        raise AssertionError("the resumed job's loss differs")
+    want = {"swa_flash": 2 * cfg.num_layers * (splice_quiesce * len(recs) + 2),
+            "ssd_intra_chunk": 0,
+            "fused_ce_stats": splice_quiesce * len(recs) + 2,
+            "fingerprint_u32": 2 * len(before)}
+    print(f"launches on {MIGRATE_PATH}: {launches}; peak device memory "
+          f"{torch.cuda.max_memory_allocated()} bytes", flush=True)
+    if launches != want:
+        raise AssertionError(f"expected launches {want}, saw {launches}")
+    del new_rt
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_serve(torch, card, arch, expected, counters, tools):
@@ -889,6 +1220,10 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.kernels import _build
+    from repro_torch.kernels.checksum import ops as fp_ops
+    from repro_torch.kernels.checksum import ref as fp_ref
+    from repro_torch.kernels.checksum.fingerprint import SOURCE as FP_SOURCE
+    from repro_torch.kernels.checksum.fingerprint import fingerprint_u32
     from repro_torch.kernels.fused_ce import ce, fused_cross_entropy
     from repro_torch.kernels.fused_ce import ref as ce_ref
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
@@ -907,7 +1242,8 @@ def main() -> int:
     card = card_line()
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}; card: {card}", flush=True)
-    sources = (swa.SOURCE, ssd.SOURCE, ce.SOURCE)
+    print(f"host memory: {_host_memory()} bytes", flush=True)
+    sources = (swa.SOURCE, ssd.SOURCE, ce.SOURCE, FP_SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(_build.build, sources))
@@ -921,17 +1257,22 @@ def main() -> int:
     ssd_stats = phase_ssd_kernel(torch, ssd.ssd_intra_chunk, ssd_chunked,
                                  ssd_ref)
     ce_stats = phase_ce_kernel(torch, ce, ce_ref, fused_cross_entropy)
+    fp_stats = phase_fingerprint_kernel(torch, fingerprint_u32, fp_ops, fp_ref)
     counters = {"swa_flash": swa.swa_flash,
                 "ssd_intra_chunk": ssd.ssd_intra_chunk,
-                "fused_ce_stats": ce.fused_ce_stats}
+                "fused_ce_stats": ce.fused_ce_stats,
+                "fingerprint_u32": fingerprint_u32}
     tools = (get_config, ServingEngine, prefill_fn, decode_step_fn)
     by_path = {arch: phase_serve(torch, card, arch, expected, counters, tools)
                for arch, expected in PATHS}
     phase_checks(torch, get_config, get_smoke_config, init_params,
                  prefill_fn, decode_step_fn, ServingEngine)
-    by_path[TRAIN_PATH] = phase_train(torch, card, counters, swa_attention,
-                                      swa_attention_ref)
+    by_path[TRAIN_PATH], rt, step_s = phase_train(
+        torch, card, counters, swa_attention, swa_attention_ref)
     phase_train_f32()
+    job = [rt]  # phase 5 takes the only reference, to free the source
+    del rt
+    by_path[MIGRATE_PATH] = phase_migrate(torch, card, counters, job, step_s)
 
     kernels = []
     for name, route, source, replaces, stats in (
@@ -943,7 +1284,10 @@ def main() -> int:
              "src/repro/kernels/ssd_scan/ssd.py:58", ssd_stats),
             ("fused_ce_stats", "cuda",
              "src/repro_torch/kernels/fused_ce/csrc/fused_ce_stats.cu",
-             "src/repro/kernels/fused_ce/ce.py:67", ce_stats)):
+             "src/repro/kernels/fused_ce/ce.py:67", ce_stats),
+            ("fingerprint_u32", "cuda",
+             "src/repro_torch/kernels/checksum/csrc/fingerprint_u32.cu",
+             "src/repro/kernels/checksum/fingerprint.py:55", fp_stats)):
         paths = {arch: n[name] for arch, n in by_path.items() if n[name]}
         kernels.append({
             "name": name, "route": route, "source": source,

@@ -10,7 +10,10 @@ The port keeps the same tree: the same keys in the same order, the same
 ``None`` leaves, the same shapes, with tensors for arrays.  Numpy sits in
 between, so this module imports neither JAX nor anything of ``repro``:
 the caller turns the JAX tree into numpy first
-(``jax.tree_util.tree_map(np.asarray, params)``).
+(``jax.tree_util.tree_map(np.asarray, params)``).  The checkpoint store
+(``core/checkpoint.py``) holds the same numpy trees: a snapshot leaves the
+runtime through ``train_state_to_numpy`` and a restored one comes back
+through ``train_state_from_jax``, whichever package wrote it.
 """
 from __future__ import annotations
 

@@ -157,6 +157,11 @@ class ElasticRuntime:
     def from_snapshot(cls, cfg: ModelConfig, tcfg: TrainConfig, snap: Dict,
                       physical_devices: int, global_batch: int, seq_len: int,
                       *, device="cuda") -> "ElasticRuntime":
+        """A runtime resumed from ``snapshot()``'s payload, or from a
+        checkpoint: ``state`` one worker's tree of numpy arrays as
+        ``CheckpointStore.restore`` returns it (in the manifest's or the
+        template's key order), ``pipeline`` and ``world_size`` from that
+        worker's host state."""
         dev = resolve_device(device)
         state = train_state_from_jax(snap["state"], cfg, device=dev)
         return cls(cfg, tcfg, snap["world_size"], physical_devices,

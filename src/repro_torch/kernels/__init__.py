@@ -9,6 +9,10 @@
 - ``fused_ce`` — streaming-vocab cross-entropy statistics (lse, label
   logit) in CUDA C++ (``csrc/fused_ce_stats.cu``), in place of the Pallas
   TPU kernel ``repro.kernels.fused_ce.ce.fused_ce_stats``.
+- ``checksum`` — the 128-bit content fingerprint of a buffer (four uint32
+  lanes of position-weighted sums) in CUDA C++
+  (``csrc/fingerprint_u32.cu``), in place of the Pallas TPU kernel
+  ``repro.kernels.checksum.fingerprint.fingerprint_u32``.
 
 Each kernel directory has the CUDA source under ``csrc/``, its ctypes
 binding, ``ops.py`` (the public wrapper, same signature as the JAX one) and
@@ -16,6 +20,6 @@ binding, ``ops.py`` (the public wrapper, same signature as the JAX one) and
 tests and ``chip_smoke.py`` hold the kernel against).  ``_build.py``
 compiles the sources at first use.  ``swa_attention`` and ``fused_ce``
 are autograd functions whose backward is plain PyTorch (the Pallas kernels
-have none).  The Pallas kernel ``fingerprint_u32`` is not ported yet
-(ROADMAP.md).
+have none).  Every Pallas kernel of the JAX package has its counterpart
+here.
 """

@@ -11,8 +11,9 @@ mid-run resizes: the paper's §2 lifecycle as one command, on ``--device``
         --global-batch 4 --seq-len 4096 --steps 5 --resize 3:2
 
 Without ``--full`` it trains the reduced smoke config.  The port trains the
-dense family (olmo-1b and the other dense configs); periodic checkpoints
-(``--ckpt-every``) are ROADMAP M5.
+dense family (olmo-1b and the other dense configs).  ``--ckpt-every N``
+takes a transparent checkpoint of every logical worker every N steps into
+an in-memory content-deduped store, as the JAX command does.
 """
 from __future__ import annotations
 
@@ -22,7 +23,9 @@ import time
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import TrainConfig
+from repro_torch.core.checkpoint import CheckpointStore
 from repro_torch.core.elastic import ElasticRuntime
+from repro_torch.core.migration import checkpoint_job
 
 
 def main(argv=None) -> None:
@@ -46,10 +49,9 @@ def main(argv=None) -> None:
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
-    if args.ckpt_every > 0:
-        raise NotImplementedError(
-            "--ckpt-every: transparent checkpoints are not ported yet "
-            "(ROADMAP M5)")
+    if args.ckpt_every < 0:
+        ap.error(f"--ckpt-every must be >= 0 (0: no checkpoints); got "
+                 f"{args.ckpt_every}")
     cfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
     tcfg = TrainConfig(total_steps=args.steps, warmup_steps=2,
                        learning_rate=args.lr)
@@ -60,6 +62,7 @@ def main(argv=None) -> None:
 
     rt = ElasticRuntime(cfg, tcfg, args.world, args.physical,
                         args.global_batch, args.seq_len, device=args.device)
+    store = CheckpointStore()
     t0 = time.time()
     events = []
     while int(rt.state["step"]) < args.steps:
@@ -68,6 +71,11 @@ def main(argv=None) -> None:
             ev = rt.resize(resizes[step])
             print(f"[resize] {ev}")
             events.append({"resize": ev})
+        if args.ckpt_every and step and step % args.ckpt_every == 0:
+            stats = checkpoint_job(rt, store, f"train-{args.arch}")
+            print(f"[ckpt] step={step} stored={stats.device_stored_bytes/1e6:.1f}MB "
+                  f"(logical {stats.device_logical_bytes/1e6:.1f}MB, "
+                  f"{stats.n_workers} workers)")
         rec = rt.run_steps(1)[0]
         print(f"step {rec['step']:4d} loss={rec['loss']:.4f} "
               f"grad_norm={rec['grad_norm']:.4f} "

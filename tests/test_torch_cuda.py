@@ -15,6 +15,10 @@ from repro_torch.bridge import train_state_from_jax, train_state_to_numpy
 from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import TrainConfig
 from repro_torch.data import DataPipeline
+from repro_torch.kernels.checksum.fingerprint import (BLOCK_WORDS,
+                                                       fingerprint_u32)
+from repro_torch.kernels.checksum.ops import _as_words, fingerprint
+from repro_torch.kernels.checksum.ref import fingerprint_u32_ref
 from repro_torch.kernels.fused_ce import fused_cross_entropy
 from repro_torch.kernels.fused_ce.ce import fused_ce_stats, tile, vocab_splits
 from repro_torch.kernels.fused_ce.ref import (cross_entropy_ref,
@@ -282,3 +286,60 @@ def test_smoke_train_step_card_matches_cpu():
         assert 1 - firm.mean() < 0.05
         np.testing.assert_allclose(a[firm], b[firm], rtol=0, atol=1e-3 * lr)
         np.testing.assert_allclose(a[~firm], b[~firm], rtol=0, atol=0.2 * lr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    # tests/test_kernels.py's shapes
+    ((1000,), torch.float32), ((64, 128), torch.bfloat16),
+    ((7, 11, 13), torch.int32), ((100_000,), torch.float32),
+    ((3, 5), torch.float32), ((256, 128), torch.uint8),
+    # 16-bit floats (zero-extended), 1-byte and 8-byte types, a length
+    # that is not a multiple of the block, and two blocks exactly
+    ((33, 7), torch.float16), ((4096, 7), torch.bfloat16),
+    ((77,), torch.int8), ((50,), torch.bool), ((3000,), torch.int64),
+    ((40_000,), torch.float32), ((2 * BLOCK_WORDS,), torch.int32),
+])
+def test_fingerprint_u32_matches_plain_on_card(shape, dtype):
+    """Bit for bit: the sums are mod 2^32, so any order gives the same
+    digest."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(0)
+    if dtype.is_floating_point:
+        x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    else:
+        x = torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=g,
+                          device=dev).to(dtype)
+    before = fingerprint_u32.launches
+    got = fingerprint(x)
+    torch.cuda.synchronize()
+    assert fingerprint_u32.launches == before + 1
+    assert got.dtype == torch.uint32 and got.device == x.device
+    want = fingerprint_u32_ref(_as_words(x))
+    assert got.cpu().tolist() == want.cpu().tolist()
+    assert got.cpu().tolist() == fingerprint(x.cpu()).tolist()
+
+
+@pytest.mark.cuda
+def test_fingerprint_u32_unaligned_views_and_edges_on_card():
+    """A view that starts 4, 8 or 12 bytes into its buffer takes the
+    kernel's scalar loads; the words are read in place, not padded; a 0-d
+    tensor is one word; an empty one launches nothing."""
+    dev = _card()
+    x = torch.randn(50_001, generator=torch.Generator(device=dev)
+                    .manual_seed(1), device=dev)
+    for off in (1, 2, 3):
+        view = x[off:]
+        assert view.data_ptr() % 16 != 0
+        assert fingerprint(view).cpu().tolist() == \
+            fingerprint(view.cpu()).tolist()
+    step = torch.tensor(7, dtype=torch.int32, device=dev)
+    assert fingerprint(step).cpu().tolist() == \
+        fingerprint(step.cpu()).tolist()
+    before = fingerprint_u32.launches
+    assert fingerprint(torch.zeros(0, device=dev)).cpu().tolist() == [0] * 4
+    assert fingerprint_u32.launches == before
+    with pytest.raises(ValueError, match="4-byte"):
+        fingerprint_u32(torch.zeros(8, dtype=torch.int16, device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        fingerprint_u32(torch.zeros(8, 8, device=dev).T)

@@ -34,9 +34,15 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro') or m.startswith('jax')]\n"
         "print(len(names), bad)\n"
+        "print(' '.join(names))\n"
         "sys.exit(1 if bad or len(names) < 20 else 0)\n")
     proc = _run("-c", code)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    names = proc.stdout.splitlines()[1].split()
+    for mod in ("core.barrier", "core.checkpoint", "core.migration",
+                "kernels.checksum.fingerprint", "kernels.checksum.ops",
+                "kernels.checksum.ref", "utils.hashing", "utils.tree"):
+        assert f"repro_torch.{mod}" in names
 
 
 def test_engine_without_device_raises_where_there_is_no_card():

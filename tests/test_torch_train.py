@@ -305,9 +305,13 @@ def test_train_command_defaults_to_the_card():
         train_cli.main(["--steps", "1"])
 
 
-def test_train_command_refuses_checkpoints():
-    with pytest.raises(NotImplementedError, match="M5"):
-        train_cli.main(["--device", "cpu", "--ckpt-every", "2"])
+def test_train_command_refuses_checkpoints(capsys):
+    """A negative checkpoint interval is refused (0 takes none; a positive
+    one works, tests/test_torch_migration.py)."""
+    with pytest.raises(SystemExit) as exc:
+        train_cli.main(["--device", "cpu", "--ckpt-every", "-2"])
+    assert exc.value.code == 2
+    assert "--ckpt-every must be >= 0" in capsys.readouterr().err
 
 
 def test_full_olmo_train_state_shapes():

@@ -10,10 +10,13 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    per source, all started together) and print the build time and the
    compiler's register report.
 2. Hold ``swa_flash`` against its plain PyTorch version on the card at the
-   olmo serving shape (bf16 and f32), at two ragged/windowed shapes and
-   at the olmo-1b training shapes (B 4 and 2, S 4096, bf16), then time the kernel, the plain version and PyTorch's
-   ``scaled_dot_product_attention`` (the yardstick; the port never calls
-   it) beside the kernel's bound.
+   olmo serving shape (bf16 and f32), at two ragged/windowed shapes, at
+   the olmo-1b training shapes (B 4 and 2, S 4096, bf16), at head dims 80
+   and 120 (bf16 and f32) and at bf16 cases with a window shorter than S
+   and a ragged S; then, at the serving and the training shape, time the
+   kernel (back to back, and with the L2 flushed before each launch), the
+   plain version and PyTorch's ``scaled_dot_product_attention`` (the
+   yardstick; the port never calls it) beside the kernel's bound.
 2b. Hold ``ssd_intra_chunk`` against its plain version at the mamba2-130m
    serving shape (bf16 and f32) and the zamba2-1.2b one; run the whole SSD
    wrapper at a ragged length against the plain chunked scan, the O(L)
@@ -24,9 +27,10 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    training shapes (T 16384 and 8192 tokens, d 2048, V 50304, bf16, the
    head read in place as ``embed.T``) and a ragged f32 case; compare the
    (sum, count) of ``fused_cross_entropy`` with the full-logits plain CE;
-   time the kernel and the plain version beside the kernel's bound, with
-   cuBLAS's time for the bare ``h @ W`` GEMM printed for context (no
-   PyTorch call computes (lse, pick)).
+   time the kernel (back to back, and with the L2 flushed before each
+   launch) and the plain version beside the kernel's bound, with cuBLAS's
+   time for the bare ``h @ W`` GEMM printed for context (no PyTorch call
+   computes (lse, pick)).
 2d. Hold ``fingerprint_u32`` against its plain version bit for bit at the
    shapes of ``tests/test_kernels.py``, a bf16 and an f16 array, a length
    that is not a multiple of the 32,768-word block (also through a view
@@ -41,7 +45,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    bf16), then mamba2-130m (24 layers, d_model 768, bf16), then
    zamba2-1.2b (38 Mamba2 layers and 6 applications of one shared
    attention block, d_model 2048, bf16).  Every kernel's launch count is
-   set to 0 just before each path and read just after: olmo launches
+   set to 0 just before each path and read just after (and the wrappers
+   must copy no operand for TMA on the way): olmo launches
    ``swa_flash`` once per layer; mamba2 ``ssd_intra_chunk`` once per layer;
    zamba2 both, once per Mamba2 layer and once per shared block.  Then time
    prefill and decode, profile one of each, and check decode-vs-prefill at
@@ -108,7 +113,17 @@ KERNEL_CASES = [
     (1, 128, 1, 32, 48, "float32"),
     (4, 4096, 16, 128, 0, "bfloat16"),  # olmo-1b training, splice 1
     (2, 4096, 16, 128, 0, "bfloat16"),  # splice 2: one slice
+    # head dims 80 (paper-gpt2-1.8b: 1920 / 24) and 120 (h2o-danube-3-4b:
+    # 3840 / 32), each in bf16 and in f32
+    (2, 512, 24, 80, 0, "bfloat16"),
+    (2, 512, 24, 80, 0, "float32"),
+    (2, 512, 32, 120, 0, "bfloat16"),
+    (2, 512, 32, 120, 0, "float32"),
+    (1, 1000, 8, 128, 256, "bfloat16"),  # a window shorter than S
+    (2, 333, 4, 120, 100, "bfloat16"),   # ragged S and a window
 ]
+SERVE_CASE, TRAIN_CASE = KERNEL_CASES[0], KERNEL_CASES[4]  # timed
+L2_FLUSH_BYTES = 64 << 20  # written between calls: more than the 50 MB L2
 # The kernel and the plain version both accumulate in f32 and differ in
 # the order of summation: 2e-5 at f32 (tests/test_kernels.py's bound).  At
 # bf16 each rounds its f32 result to bf16 once, so they may differ by one
@@ -196,6 +211,40 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, name: str, iters: int) -> float:
+    """Device time per call of ``fn()`` of the kernels whose name holds
+    ``name``, from ``torch.profiler`` over ``iters`` calls: the kernels'
+    own time, without the host's launch overhead that back-to-back events
+    also see when a call's Python outlasts its kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if name in e.key)
+    if total <= 0:
+        raise AssertionError(f"the profiler saw no {name} kernel")
+    return total / 1e3 / iters
+
+
+def time_ms_l2_flushed(torch, fn, iters: int, warmup: int = 3) -> float:
+    """Mean device time of ``fn()`` with a cold L2: a 64 MB buffer is
+    written before each call, and the mean time of writing it alone is
+    subtracted."""
+    buf = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+
+    def flushed():
+        buf.zero_()
+        fn()
+
+    both = time_ms(torch, flushed, iters, warmup)
+    return both - time_ms(torch, buf.zero_, iters, warmup)
+
+
 def _peak_flops(torch, dtype):
     from repro_torch.utils import constants
 
@@ -271,27 +320,46 @@ def phase_kernel(torch, swa_attention, swa_attention_ref):
         if main_err is None:
             main_err = err
 
-    b, s, h, d, w, dname = KERNEL_CASES[0]
-    dtype = getattr(torch, dname)
-    q, k, v = (torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
-               for _ in range(3))
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    kernel_ms = time_ms(torch, lambda: swa_attention(q, k, v, window=w), 200)
-    plain_ms = time_ms(torch, lambda: swa_attention_ref(qt, kt, vt, window=w),
-                       20)
-    library_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True), 200)
-    kernel_ms_2 = time_ms(torch, lambda: swa_attention(q, k, v, window=w), 200)
-    bound_ms, bound_by = attention_bound(torch, b, s, h, d, w, dtype)
-    print(f"times at B={b} S={s} H={h} D={d} window={w} {dname} (mean of "
-          f"back-to-back launches; q/k/v/o, {4 * q.numel() * q.element_size()}"
-          f" bytes, fit the 50 MB L2): "
-          f"kernel {kernel_ms!r} ms then {kernel_ms_2!r} ms, plain "
-          f"{plain_ms!r} ms, scaled_dot_product_attention {library_ms!r} ms, "
-          f"bound {bound_ms!r} ms ({bound_by})", flush=True)
-    return dict(max_abs_err=main_err, ms=(kernel_ms + kernel_ms_2) / 2,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms)
+    stats = dict(max_abs_err=main_err)
+    for case, key, iters in ((SERVE_CASE, "", 200), (TRAIN_CASE, "_train", 20)):
+        b, s, h, d, w, dname = case
+        dtype = getattr(torch, dname)
+        q, k, v = (torch.randn(b, s, h, d, generator=gen, device=dev)
+                   .to(dtype) for _ in range(3))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        kernel_ms = time_ms(torch, lambda: swa_attention(q, k, v, window=w),
+                            iters)
+        plain_ms = time_ms(torch, lambda: swa_attention_ref(qt, kt, vt,
+                                                            window=w),
+                           max(3, iters // 10), 1)
+        library_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True),
+                             iters)
+        kernel_ms_2 = time_ms(torch, lambda: swa_attention(q, k, v, window=w),
+                              iters)
+        cold_ms = time_ms_l2_flushed(
+            torch, lambda: swa_attention(q, k, v, window=w), iters)
+        dev_ms = device_ms(torch, lambda: swa_attention(q, k, v, window=w),
+                           "swa_flash", iters)
+        bound_ms, bound_by = attention_bound(torch, b, s, h, d, w, dtype)
+        print(f"times at B={b} S={s} H={h} D={d} window={w} {dname} (mean of "
+              f"back-to-back launches; q/k/v/o "
+              f"{4 * q.numel() * q.element_size()} bytes): kernel "
+              f"{kernel_ms!r} ms then {kernel_ms_2!r} ms, with the L2 flushed"
+              f" before each launch {cold_ms!r} ms, device time by the "
+              f"profiler {dev_ms!r} ms; plain {plain_ms!r} ms, "
+              f"scaled_dot_product_attention {library_ms!r} ms, bound "
+              f"{bound_ms!r} ms ({bound_by})", flush=True)
+        stats.update({f"ms{key}": (kernel_ms + kernel_ms_2) / 2,
+                      f"ms{key}_l2_flushed": cold_ms,
+                      f"ms{key}_device": dev_ms,
+                      f"plain_ms{key}": plain_ms,
+                      f"bound_ms{key}": bound_ms,
+                      f"bound_by{key}": bound_by,
+                      f"library_ms{key}": library_ms})
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return stats
 
 
 def _ssd_inputs(torch, gen, bs, l, h, p, n, dtype):
@@ -527,19 +595,25 @@ def phase_ce_kernel(torch, ce, ce_ref, fused_cross_entropy):
         plain_ms = time_ms(torch, lambda: ce_ref.fused_ce_stats_ref(h, w, lab),
                            3, 1)
         kernel_ms_2 = time_ms(torch, lambda: ce.fused_ce_stats(h, w, lab), 10)
+        cold_ms = time_ms_l2_flushed(
+            torch, lambda: ce.fused_ce_stats(h, w, lab), 10)
         bound_ms, bound_by = ce_bound(torch, t, d, v, dtype)
         print(f"context: cuBLAS h @ W at T={t} ({dname} GEMM, (T, V) {dname} "
               f"out): {gemm_ms!r} ms", flush=True)
         print(f"times at T={t} d={d} V={v} {dname} (mean of back-to-back "
               f"launches): kernel {kernel_ms!r} ms then {kernel_ms_2!r} ms, "
-              f"plain {plain_ms!r} ms, bound {bound_ms!r} ms ({bound_by}); "
+              f"with the L2 flushed before each launch {cold_ms!r} ms; plain "
+              f"{plain_ms!r} ms, bound {bound_ms!r} ms ({bound_by}); "
               f"library: none (no PyTorch call computes (lse, pick))",
               flush=True)
         times[t] = dict(ms=(kernel_ms + kernel_ms_2) / 2, plain_ms=plain_ms,
-                        bound_ms=bound_ms, bound_by=bound_by)
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        ms_l2_flushed=cold_ms, gemm_ms=gemm_ms)
         del h, w, lab
         torch.cuda.empty_cache()
-    return dict(times[CE_CASES[0][0]], max_abs_err=main_err, library_ms=None)
+    t2 = CE_CASES[1][0]
+    return dict(times[CE_CASES[0][0]], max_abs_err=main_err, library_ms=None,
+                **{f"{key}_t{t2}": val for key, val in times[t2].items()})
 
 
 @contextlib.contextmanager
@@ -590,7 +664,7 @@ def _first_batch_grads(torch, rt, loss_and_grads, global_norm):
     return out
 
 
-def phase_train(torch, card, counters, swa_attention, swa_attention_ref):
+def phase_train(torch, card, counters):
     """olmo-1b training at full width through ElasticRuntime; returns the
     main path's launch counts, the runtime (at splice 2) and its mean step
     time at splice 2 in seconds."""
@@ -609,27 +683,6 @@ def phase_train(torch, card, counters, swa_attention, swa_attention_ref):
     tcfg = TrainConfig(total_steps=steps, warmup_steps=2, learning_rate=1e-3)
     world, gb, seq = TRAIN["world"], TRAIN["batch"], TRAIN["seq"]
     tokens_per_step = gb * seq
-
-    # the attention kernel at the training shape, for context
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    q, k, v = (torch.randn(gb, seq, cfg.num_heads, cfg.resolved_head_dim(),
-                           generator=gen, device="cuda").to(torch.bfloat16)
-               for _ in range(3))
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    swa_ms = time_ms(torch, lambda: swa_attention(q, k, v, window=0), 10)
-    swa_plain_ms = time_ms(torch, lambda: swa_attention_ref(qt, kt, vt), 3, 1)
-    sdpa_ms = time_ms(torch, lambda: torch.nn.functional
-                      .scaled_dot_product_attention(qt, kt, vt, is_causal=True),
-                      10)
-    bound = attention_bound(torch, gb, seq, cfg.num_heads,
-                            cfg.resolved_head_dim(), 0, torch.bfloat16)
-    print(f"context: swa_flash forward at the training shape (B={gb} S={seq} "
-          f"H={cfg.num_heads} D={cfg.resolved_head_dim()} bf16 causal): "
-          f"kernel {swa_ms!r} ms, plain {swa_plain_ms!r} ms, "
-          f"scaled_dot_product_attention {sdpa_ms!r} ms, bound {bound[0]!r} "
-          f"ms ({bound[1]})", flush=True)
-    del q, k, v, qt, kt, vt
-    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     rt = ElasticRuntime(cfg, tcfg, world, TRAIN["physical"][0], gb, seq,
@@ -670,6 +723,7 @@ def phase_train(torch, card, counters, swa_attention, swa_attention_ref):
     # the main path: counts to 0 just before, read just after
     for fn in counters.values():
         fn.launches = 0
+    copies = _copies(counters)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     records = []
@@ -704,7 +758,11 @@ def phase_train(torch, card, counters, swa_attention, swa_attention_ref):
             raise AssertionError(f"non-finite metrics {rec}")
         records.append(dict(rec, ms=ms))
     launches = {name: fn.launches for name, fn in counters.items()}
-    print(f"launches over the {steps} steps: {launches}", flush=True)
+    print(f"launches over the {steps} steps: {launches}; operands copied "
+          f"for TMA: {_copies(counters)} (before: {copies})", flush=True)
+    if _copies(counters) != copies:
+        raise AssertionError("the kernels' wrappers copied an operand on the "
+                             "training path")
 
     # ln V + sigma^2 / 2, sigma^2 = d * 0.02^2 (dense_init scale 0.02)
     expect = math.log(cfg.vocab_size) + cfg.d_model * 0.02 ** 2 / 2
@@ -1022,6 +1080,13 @@ def phase_migrate(torch, card, counters, job, step_s):
     return launches
 
 
+def _copies(counters) -> dict:
+    """The copies each wrapper has made of an operand its kernel's TMA
+    cannot read in place (``swa_flash``, ``fused_ce_stats``)."""
+    return {name: fn.copies for name, fn in counters.items()
+            if hasattr(fn, "copies")}
+
+
 def phase_serve(torch, card, arch, expected, counters, tools):
     """One serving path at full width; returns its launch counts."""
     get_config, ServingEngine, prefill_fn, decode_step_fn = tools
@@ -1042,6 +1107,7 @@ def phase_serve(torch, card, arch, expected, counters, tools):
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
+    copies = _copies(counters)
     t0 = time.perf_counter()
     out = engine.generate(prompts[:, :PROMPT], max_new_tokens=NEW_TOKENS)
     out = out.cpu()
@@ -1054,6 +1120,9 @@ def phase_serve(torch, card, arch, expected, counters, tools):
     if launches != expected:
         raise AssertionError(f"expected launches {expected} in one prefill "
                              f"of {arch}, saw {launches}")
+    if _copies(counters) != copies:
+        raise AssertionError(f"the kernels' wrappers copied an operand on "
+                             f"{arch}'s path: {copies} -> {_copies(counters)}")
     if out.shape != (BATCH, NEW_TOKENS):
         raise AssertionError(f"generated shape {tuple(out.shape)}")
     if not ((out >= 0) & (out < cfg.vocab_size)).all():
@@ -1267,8 +1336,7 @@ def main() -> int:
                for arch, expected in PATHS}
     phase_checks(torch, get_config, get_smoke_config, init_params,
                  prefill_fn, decode_step_fn, ServingEngine)
-    by_path[TRAIN_PATH], rt, step_s = phase_train(
-        torch, card, counters, swa_attention, swa_attention_ref)
+    by_path[TRAIN_PATH], rt, step_s = phase_train(torch, card, counters)
     phase_train_f32()
     job = [rt]  # phase 5 takes the only reference, to free the source
     del rt
@@ -1296,6 +1364,9 @@ def main() -> int:
             "ms": stats["ms"], "plain_ms": stats["plain_ms"],
             "bound_ms": stats["bound_ms"], "bound_by": stats["bound_by"],
             "library_ms": stats["library_ms"],
+            **{key: val for key, val in stats.items() if key not in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")},
         })
     print(json.dumps({"kernels": kernels}))
     print(card_line())

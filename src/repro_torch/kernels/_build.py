@@ -3,9 +3,9 @@
 Each kernel is one ``.cu`` file in the repository with a plain C interface.
 ``load(source)`` compiles it with ``nvcc`` for ``sm_90a`` into a shared
 library under ``build/`` at the repository root, named by a hash of the
-source and the flags, so an edited source builds anew and an unchanged one
-is reused.  Nothing here runs at import time: importing this module needs
-neither ``nvcc`` nor CUDA.
+source, the shared headers under ``include/`` and the flags, so an edited
+source or header builds anew and an unchanged one is reused.  Nothing here
+runs at import time: importing this module needs neither ``nvcc`` nor CUDA.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ from pathlib import Path
 
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build"
+INCLUDE_DIR = Path(__file__).resolve().parent / "include"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,6 +39,8 @@ def _nvcc() -> str:
 
 def library_path(source: Path) -> Path:
     digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(INCLUDE_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:16]}.so"
 
@@ -54,7 +57,8 @@ def build(source: Path) -> Path:
     os.close(fd)
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR),
+                               "-o", tmp, str(source)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")

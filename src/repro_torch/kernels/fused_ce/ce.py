@@ -51,15 +51,48 @@ def vocab_splits(t: int, v: int, tile: Tuple[int, int], sms: int) -> int:
     return max(1, min(-(-v // bv), -(-2 * sms // row_tiles)))
 
 
+def _tma_ready(hidden: torch.Tensor, head: torch.Tensor):
+    """(hidden, head, sh, sd, sv) as the bf16 kernel's TMA reads them: in
+    place where TMA can (16-byte aligned; hidden's row stride a multiple of
+    8 elements; the head K-major, ``embed.T`` with strides (1, s), or
+    MN-major, strides (s, 1), s a positive multiple of 8), else copied:
+    hidden contiguous, the head into the K-major form.  Each copy adds one
+    to ``fused_ce_stats.copies``.  A stride of an axis of length 1 is never
+    stepped and is passed as 8."""
+    t, d = hidden.shape
+    v = head.shape[1]
+    sh = hidden.stride(0) if t > 1 else 8
+    if hidden.data_ptr() % 16 or sh % 8:
+        hidden = torch.empty(t, d, dtype=hidden.dtype,
+                             device=hidden.device).copy_(hidden)
+        sh = d
+        fused_ce_stats.copies += 1
+    sd, sv = head.stride()
+    sv = sv if v > 1 else 8
+    in_place = head.data_ptr() % 16 == 0 and (
+        (sd == 1 and sv > 0 and sv % 8 == 0)
+        or (sv == 1 and sd > 0 and sd % 8 == 0))
+    if not in_place:
+        head = torch.empty(v, d, dtype=head.dtype,
+                           device=head.device).copy_(head.T).T
+        sd, sv = 1, d
+        fused_ce_stats.copies += 1
+    return hidden, head, sh, sd, sv
+
+
 def fused_ce_stats(hidden: torch.Tensor, head: torch.Tensor,
                    labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel on the current CUDA stream.
 
     hidden (T, d) with a contiguous last axis, head (d, V) with any strides
     (``embed.T`` is read in place), both float32 or both bfloat16, d a
-    multiple of ``D_MULTIPLE``; labels (T,) integers.  Any T and V.  Returns
-    new (lse (T, 1), pick (T, 1)) f32, pick = -1e30 for a label outside
-    [0, V).  Each launch adds one to ``fused_ce_stats.launches``.
+    multiple of ``D_MULTIPLE``; labels (T,) integers.  Any T and V.  In
+    bfloat16 the kernel reads hidden and head through TMA; what TMA cannot
+    take in place (a head with neither stride 1, a stride that is not a
+    multiple of 8 elements, an address that is not 16-byte aligned) is
+    copied first (``_tma_ready``).  Returns new (lse (T, 1), pick (T, 1))
+    f32, pick = -1e30 for a label outside [0, V).  Each launch adds one to
+    ``fused_ce_stats.launches``.
     """
     if not (hidden.is_cuda and head.device == hidden.device
             and labels.device == hidden.device):
@@ -94,10 +127,14 @@ def fused_ce_stats(hidden: torch.Tensor, head: torch.Tensor,
     nsplit = vocab_splits(t, v, tile(hidden.dtype), sms)
     part = torch.empty(3, nsplit, t, **f32)
     lab = labels.to(torch.int32).contiguous()
+    if hidden.dtype == torch.bfloat16:
+        hidden, head, sh, sd, sv = _tma_ready(hidden, head)
+    else:
+        (sh, sd, sv) = hidden.stride(0), *head.stride()
     with torch.cuda.device(hidden.device):
         err = _kernel()(
-            _DTYPE_CODES[hidden.dtype], hidden.data_ptr(), hidden.stride(0),
-            head.data_ptr(), head.stride(0), head.stride(1), lab.data_ptr(),
+            _DTYPE_CODES[hidden.dtype], hidden.data_ptr(), sh,
+            head.data_ptr(), sd, sv, lab.data_ptr(),
             lse.data_ptr(), pick.data_ptr(), part.data_ptr(), t, d, v, nsplit,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -108,3 +145,4 @@ def fused_ce_stats(hidden: torch.Tensor, head: torch.Tensor,
 
 
 fused_ce_stats.launches = 0
+fused_ce_stats.copies = 0

@@ -52,6 +52,16 @@ def _card():
     (4, 512, 16, 128, 0, torch.float32, 2e-5),
     (2, 200, 3, 64, 96, torch.float32, 2e-5),
     (1, 128, 1, 32, 48, torch.float32, 2e-5),
+    # head dims 80 (paper-gpt2-1.8b) and 120 (h2o-danube-3-4b), whose
+    # depth the bf16 kernel pads to 16 with TMA's zero fill
+    (2, 300, 4, 80, 0, torch.bfloat16, 2 ** -7),
+    (2, 300, 4, 120, 100, torch.bfloat16, 2 ** -7),
+    (2, 300, 4, 80, 0, torch.float32, 2e-5),
+    (2, 300, 4, 120, 50, torch.float32, 2e-5),
+    # bf16 with a window shorter than S, and a ragged S
+    (1, 700, 2, 128, 256, torch.bfloat16, 2 ** -7),
+    (2, 200, 3, 64, 96, torch.bfloat16, 2 ** -7),
+    (1, 100, 2, 8, 0, torch.bfloat16, 2 ** -7),
 ])
 def test_swa_flash_matches_plain_on_card(b, s, h, d, w, dtype, tol):
     dev = _card()
@@ -65,6 +75,36 @@ def test_swa_flash_matches_plain_on_card(b, s, h, d, w, dtype, tol):
     want = swa_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                              v.transpose(1, 2), window=w).transpose(1, 2)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_swa_flash_copies_what_tma_cannot_take():
+    """bf16 views that TMA cannot read in place (an address 2 bytes off
+    16, a seq stride that is not a multiple of 8) are copied by the
+    wrapper, a head slice whose strides are multiples of 8 is read in
+    place, and the result is right."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(3)
+    b, s, h, d = 2, 256, 4, 120
+    # q: heads sliced from a wider tensor; every stride a multiple of 8
+    q = torch.randn(b, s, h + 1, d, generator=g, device=dev
+                    ).to(torch.bfloat16)[:, :, :h]
+    # k: an address 2 bytes past a 16-byte boundary
+    k = torch.empty(b * s * h * d + 1, device=dev,
+                    dtype=torch.bfloat16)[1:].view(b, s, h, d)
+    k.copy_(torch.randn(b, s, h, d, generator=g, device=dev))
+    # v: a seq stride of h * d + 4 = 484 elements
+    v = torch.empty(b, s, h * d + 4, device=dev,
+                    dtype=torch.bfloat16)[:, :, :h * d].view(b, s, h, d)
+    v.copy_(torch.randn(b, s, h, d, generator=g, device=dev))
+    before = swa_flash.copies
+    got = swa_attention(q, k, v, window=0)
+    torch.cuda.synchronize()
+    assert swa_flash.copies == before + 2
+    want = swa_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2)).transpose(1, 2)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=2e-5)
 
 
 def _ssd_inputs(dev, bs, l, h, p, n, dtype=torch.float32, seed=0):
@@ -141,6 +181,12 @@ def _ce_inputs(dev, t, d, v, dtype, seed=0, tied=True):
     (130, 64, 500, torch.float32, False),         # a contiguous (d, V) head
     (256, 128, 1024, torch.bfloat16, False),
     (100, 32, 512, torch.float32, True),
+    # bf16 at the 128 x 256 tile: ragged T and V (5000 = 19.5 tiles) with
+    # an untied (d, V) head read in place (MN-major), a tied one, and an
+    # untied one whose row stride (777) TMA cannot take (copied)
+    (1000, 2048, 5000, torch.bfloat16, False),
+    (300, 256, 777, torch.bfloat16, True),
+    (300, 256, 777, torch.bfloat16, False),
 ])
 def test_fused_ce_stats_matches_plain_on_card(t, d, v, dtype, tied):
     """lse and pick within 1e-4 of the plain version: both sum the same
@@ -164,7 +210,7 @@ def test_fused_ce_stats_tiles_come_from_the_library():
     """The library reports its tiles, and the split of olmo-1b's vocab at
     splice 1 and 2 is the one tests/test_torch_fused_ce.py checks."""
     _card()
-    assert tile(torch.bfloat16) == (128, 128)
+    assert tile(torch.bfloat16) == (128, 256)
     assert tile(torch.float32) == (64, 64)
     assert [vocab_splits(t, 50304, tile(torch.bfloat16), 132)
             for t in (16384, 8192)] == [3, 5]

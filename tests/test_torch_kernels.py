@@ -13,7 +13,7 @@ import torch
 
 from repro.kernels.swa_attention.ops import swa_attention as jax_swa_attention
 from repro_torch.kernels.swa_attention import swa_attention
-from repro_torch.kernels.swa_attention.swa import swa_flash
+from repro_torch.kernels.swa_attention.swa import check_head_dim, swa_flash
 
 
 def _qkv(seed, shape):
@@ -21,13 +21,18 @@ def _qkv(seed, shape):
     return [rng.standard_normal(shape, dtype=np.float32) for _ in range(3)]
 
 
-# the five shapes of test_kernels.py::test_swa_attention_matches_oracle
+# the five shapes of test_kernels.py::test_swa_attention_matches_oracle,
+# then the head dims of h2o-danube-3-4b (120) and paper-gpt2-1.8b (80)
+# with a window and a ragged S
 @pytest.mark.parametrize("b,s,h,d,w", [
     (2, 256, 4, 64, 0),
     (1, 384, 2, 128, 128),
     (2, 200, 3, 64, 96),
     (1, 512, 2, 64, 0),
     (1, 128, 1, 32, 48),
+    (2, 200, 3, 80, 96),
+    (1, 200, 2, 120, 0),
+    (1, 256, 2, 120, 64),
 ])
 def test_swa_attention_matches_jax(b, s, h, d, w):
     q, k, v = _qkv(b * 1000 + s + w, (b, s, h, d))
@@ -63,3 +68,14 @@ def test_swa_flash_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="CUDA"):
         swa_flash(q, q, q, window=0)
     assert swa_flash.launches == before
+
+
+def test_head_dim_rule_takes_every_multiple_of_8_up_to_128():
+    """The kernel's head-dim rule, as a function (a CPU tensor given to
+    ``swa_flash`` raises on "CUDA" first): 8, 16, ..., 128 pass, among them
+    80 (paper-gpt2-1.8b) and 120 (h2o-danube-3-4b); others raise."""
+    for d in range(8, 129, 8):
+        check_head_dim(d)
+    for d in (0, 4, 76, 100, 130, 136, 256):
+        with pytest.raises(ValueError, match="multiple of 8"):
+            check_head_dim(d)

@@ -18,11 +18,13 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    plain version and PyTorch's ``scaled_dot_product_attention`` (the
    yardstick; the port never calls it) beside the kernel's bound.
 2b. Hold ``ssd_intra_chunk`` against its plain version at the mamba2-130m
-   serving shape (bf16 and f32) and the zamba2-1.2b one; run the whole SSD
-   wrapper at a ragged length against the plain chunked scan, the O(L)
-   recurrence and its own ``initial_state`` continuation; time the kernel
-   and the plain version beside the kernel's bound (no PyTorch call
-   computes this function).
+   serving shape (bf16 and f32), the zamba2-1.2b one and bf16 cases in
+   groups of heads (head dims 16, 32 and 128, a ragged chunk, N 40 and 33,
+   H 5); run the whole SSD wrapper at a ragged length against the plain
+   chunked scan, the O(L) recurrence and its own ``initial_state``
+   continuation; time the kernel (back to back, and its device time by the
+   profiler) and the plain version beside the kernel's bound at both
+   serving shapes (no PyTorch call computes this function).
 2c. Hold ``fused_ce_stats`` against its plain version at the olmo-1b
    training shapes (T 16384 and 8192 tokens, d 2048, V 50304, bf16, the
    head read in place as ``embed.T``) and a ragged f32 case; compare the
@@ -138,6 +140,13 @@ SSD_CASES = [
     (16, 128, 24, 64, 128, "bfloat16"),  # mamba2-130m, batch 4 x 512
     (16, 128, 24, 64, 128, "float32"),
     (16, 128, 64, 64, 64, "bfloat16"),   # zamba2-1.2b, batch 4 x 512
+    (64, 128, 6, 16, 64, "bfloat16"),    # the other head dims; G 3
+    (64, 128, 6, 32, 64, "bfloat16"),
+    (64, 128, 6, 128, 128, "bfloat16"),
+    (64, 100, 6, 64, 64, "bfloat16"),    # a ragged chunk
+    (64, 128, 6, 64, 40, "bfloat16"),    # N not a multiple of 16
+    (64, 128, 6, 64, 33, "bfloat16"),    # odd N: rows not 16-byte aligned
+    (64, 128, 5, 64, 64, "bfloat16"),    # groups of 3 and 2 heads
 ]
 SSD_TOL = dict(rtol=1e-4, atol=1e-4)
 SSD_RAGGED = (1, 200, 2, 64, 32, 64)     # (B, L, H, P, N, chunk): wrapper
@@ -422,10 +431,11 @@ def phase_ssd_kernel(torch, ssd_intra_chunk, ssd_chunked, ref):
           f"{(torch.cat([y1, y2], 1) - y).abs().max().item()!r} (1e-4)",
           flush=True)
 
-    # times at the mamba2 shape (the kernels line) and the zamba2 one
-    times = [_time_ssd(torch, gen, ssd_intra_chunk, ref, case)
-             for case in (SSD_CASES[0], SSD_CASES[2])]
-    return dict(times[0], max_abs_err=main_err, library_ms=None)
+    # times at the mamba2 shape (the kernels line's ms) and the zamba2 one
+    mamba2, zamba2 = (_time_ssd(torch, gen, ssd_intra_chunk, ref, case)
+                      for case in (SSD_CASES[0], SSD_CASES[2]))
+    zamba2 = {f"{key}_zamba2": val for key, val in zamba2.items()}
+    return dict(mamba2, **zamba2, max_abs_err=main_err, library_ms=None)
 
 
 def _time_ssd(torch, gen, ssd_intra_chunk, ref, case):
@@ -435,13 +445,16 @@ def _time_ssd(torch, gen, ssd_intra_chunk, ref, case):
     kernel_ms = time_ms(torch, lambda: ssd_intra_chunk(*inputs), 100)
     plain_ms = time_ms(torch, lambda: ref.ssd_intra_chunk_ref(*inputs), 10)
     kernel_ms_2 = time_ms(torch, lambda: ssd_intra_chunk(*inputs), 100)
+    kernel = "ssd_bf16_kernel" if dname == "bfloat16" else "ssd_f32_kernel"
+    dev_ms = device_ms(torch, lambda: ssd_intra_chunk(*inputs), kernel, 100)
     bound_ms, bound_by = ssd_bound(torch, bc, q, h, p, n, dtype)
     print(f"times at BC={bc} Q={q} H={h} P={p} N={n} {dname} (mean of "
           f"back-to-back launches): kernel {kernel_ms!r} ms then "
-          f"{kernel_ms_2!r} ms, plain {plain_ms!r} ms, bound {bound_ms!r} ms "
-          f"({bound_by}); no PyTorch call computes this function", flush=True)
-    return dict(ms=(kernel_ms + kernel_ms_2) / 2, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+          f"{kernel_ms_2!r} ms, device time by the profiler {dev_ms!r} ms; "
+          f"plain {plain_ms!r} ms, bound {bound_ms!r} ms ({bound_by}); no "
+          f"PyTorch call computes this function", flush=True)
+    return dict(ms=(kernel_ms + kernel_ms_2) / 2, ms_device=dev_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def ce_bound(torch, t, d, v, dtype):

@@ -1,7 +1,8 @@
-// Hopper building blocks shared by the port's wgmma kernels
-// (`swa_flash.cu`, `fused_ce_stats.cu`): mbarriers, TMA tile loads,
-// `wgmma` shared-memory descriptors and fences, and the host-side encoding
-// of TMA tensor maps.  PTX is written inline; nothing here needs CuTe.
+// Hopper building blocks shared by the port's kernels: mbarriers, TMA tile
+// loads, `wgmma` shared-memory descriptors and fences, and the host-side
+// encoding of TMA tensor maps (`swa_flash.cu`, `fused_ce_stats.cu`);
+// `cp.async`, `ldmatrix` and `mma.sync` (`ssd_intra_chunk.cu`).  PTX is
+// written inline; nothing here needs CuTe.
 //
 // `cuTensorMapEncodeTiled` is a driver function.  It is reached through
 // the runtime's `cudaGetDriverEntryPoint`, so the libraries link no
@@ -82,6 +83,66 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
       : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// cp.async, ldmatrix and mma.sync (device; `ssd_intra_chunk.cu`)
+// ---------------------------------------------------------------------------
+
+// 16 bytes from global to shared memory, bypassing L1; both 16-byte aligned.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// 4 bytes from global to shared memory; both 4-byte aligned.
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Returns once at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8 x 8 b16 matrices; lanes 8i..8i+7 give the row addresses of
+// matrix i, and r[i] receives this lane's pair of it (row lane / 4,
+// columns 2 (lane % 4) and + 1); `_t` transposes each matrix on the way.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d += a b: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col), d 16 x 8 f32, in
+// the fragment layouts of PTX's mma.m16n8k16.  Not volatile: it touches
+// registers only, so the compiler may interleave independent products.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---------------------------------------------------------------------------

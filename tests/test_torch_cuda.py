@@ -125,6 +125,16 @@ def _ssd_inputs(dev, bs, l, h, p, n, dtype=torch.float32, seed=0):
     (16, 128, 24, 64, 128, torch.bfloat16),  # mamba2-130m, batch 4 x 512
     (16, 128, 24, 64, 128, torch.float32),
     (16, 128, 64, 64, 64, torch.bfloat16),   # zamba2-1.2b, batch 4 x 512
+    # bf16 in groups of 3 heads (64 chunks): the other head dims, a ragged
+    # chunk, N not a multiple of 16, an odd N (rows not 16-byte aligned,
+    # read element by element) and H 5 (a last group of 2)
+    (64, 128, 6, 16, 64, torch.bfloat16),
+    (64, 128, 6, 32, 64, torch.bfloat16),
+    (64, 128, 6, 128, 128, torch.bfloat16),
+    (64, 100, 6, 64, 64, torch.bfloat16),
+    (64, 128, 6, 64, 40, torch.bfloat16),
+    (64, 128, 6, 64, 33, torch.bfloat16),
+    (64, 128, 5, 64, 64, torch.bfloat16),
     (8, 32, 4, 32, 16, torch.float32),       # tests/test_kernels.py shapes
     (4, 64, 2, 64, 32, torch.float32),
     (6, 32, 8, 16, 64, torch.float32),
@@ -142,6 +152,23 @@ def test_ssd_intra_chunk_matches_plain_on_card(bc, q, h, p, n, dtype):
     # tests/test_kernels.py's bound for the kernel against its oracle
     for got_t, want_t in zip(got, want):
         assert got_t.dtype == torch.float32
+        torch.testing.assert_close(got_t, want_t, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_intra_chunk_reads_unaligned_rows_on_card():
+    """bf16 x 2 bytes past a 16-byte boundary and b with a row stride of
+    N + 8: read element by element and by cp.async, no copy."""
+    dev = _card()
+    bc, q, h, p, n = 8, 128, 6, 64, 64
+    x, dt, a, b, c = _ssd_inputs(dev, bc, q, h, p, n, torch.bfloat16, seed=2)
+    x_off = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:]
+    x_off = x_off.view(x.shape).copy_(x)
+    b_wide = torch.zeros(bc, q, n + 8, dtype=b.dtype, device=dev)[..., :n]
+    b_wide.copy_(b)
+    got = ssd_intra_chunk(x_off, dt, a, b_wide, c)
+    torch.cuda.synchronize()
+    for got_t, want_t in zip(got, ssd_intra_chunk_ref(x, dt, a, b, c)):
         torch.testing.assert_close(got_t, want_t, rtol=1e-4, atol=1e-4)
 
 

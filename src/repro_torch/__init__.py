@@ -1,8 +1,8 @@
 """PyTorch port of the ``repro`` package, for NVIDIA Hopper (H100).
 
 The layout mirrors ``repro``: ``configs``, ``core``, ``data``, ``models``,
-``kernels``, ``optim``, ``serving``, ``training``, ``launch`` and ``utils``
-sit where their JAX counterparts do.
+``kernels``, ``optim``, ``scheduler``, ``serving``, ``training``, ``launch``
+and ``utils`` sit where their JAX counterparts do.
 The port imports ``torch`` and never ``jax``, and nothing of ``repro``: it
 keeps its own copies of the JAX-free pieces it needs.
 
@@ -12,7 +12,8 @@ pulls in no kernel build.
 import importlib
 
 _SUBMODULES = ("bridge", "configs", "core", "data", "kernels", "launch",
-               "models", "optim", "serving", "training", "utils")
+               "models", "optim", "scheduler", "serving", "training",
+               "utils")
 
 
 def __getattr__(name):

@@ -7,11 +7,13 @@
 - ``checkpoint``   — content-deduped consistent checkpoints (§4, §4.6);
 - ``elastic``      — the transparent elastic runtime over the spliced step
   (§5);
-- ``migration``    — preempt -> dump -> transfer -> restore (§4.5).
+- ``migration``    — preempt -> dump -> transfer -> restore (§4.5);
+- ``sla``          — GPU-fraction SLA tiers and accounting (§2.5), a copy
+  of ``repro.core.sla`` (numpy).
 
-The device proxy, buffers, splicing engine, squash validation and SLA
-accounts of ``repro.core`` are numpy models that the port has not copied
-yet (ROADMAP.md).
+The device proxy, buffers, splicing engine and squash validation of
+``repro.core`` are numpy models that the port has not copied yet
+(ROADMAP M10).
 """
 import importlib
 
@@ -31,6 +33,11 @@ _LAZY = {
     "MigrationReport": "migration",
     "checkpoint_job": "migration",
     "migrate": "migration",
+    "TIERS": "sla",
+    "FleetSLAAccounts": "sla",
+    "FleetSlotAccount": "sla",
+    "GpuFractionAccount": "sla",
+    "SLATier": "sla",
 }
 
 

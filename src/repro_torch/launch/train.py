@@ -11,7 +11,8 @@ mid-run resizes: the paper's §2 lifecycle as one command, on ``--device``
         --global-batch 4 --seq-len 4096 --steps 5 --resize 3:2
 
 Without ``--full`` it trains the reduced smoke config.  The port trains the
-dense family (olmo-1b and the other dense configs).  ``--ckpt-every N``
+dense family (olmo-1b and the other dense configs) and the SSM family
+(``--arch mamba2-130m``).  ``--ckpt-every N``
 takes a transparent checkpoint of every logical worker every N steps into
 an in-memory content-deduped store, as the JAX command does.
 """

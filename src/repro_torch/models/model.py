@@ -1,8 +1,8 @@
 """Model assembly: serving for the dense, SSM and hybrid families, training
-for the dense family (port of ``repro.models.model``).
+for the dense and SSM families (port of ``repro.models.model``).
 
 - ``init_params``       — parameter tree, layers stacked on axis 0 as in JAX
-- ``model_forward``     — training forward -> (loss, metrics) (dense only)
+- ``model_forward``     — training forward -> (loss, metrics) (dense, SSM)
 - ``prefill_fn``        — prompt processing -> (last logits, decode state)
 - ``decode_step_fn``    — one-token decode with the KV and SSM caches
 - ``init_decode_state`` — cache allocation
@@ -173,6 +173,11 @@ def _dense_block(cfg: ModelConfig, block: Dict, x: torch.Tensor
         num_kv_heads=cfg.num_kv_heads, rope_theta=cfg.rope_theta,
         window=cfg.sliding_window)
     return _mlp_res(cfg, block, x + h)
+
+
+def _ssm_block(cfg: ModelConfig, block: Dict, x: torch.Tensor) -> torch.Tensor:
+    h = apply_norm(cfg.norm, x, block["ln1"])
+    return x + ssm_lib.ssm_forward(block["ssm"], h, cfg.ssm)
 
 
 def _lm_head(cfg: ModelConfig, params: Dict) -> torch.Tensor:
@@ -380,13 +385,17 @@ def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
                                labels.reshape(-1))
 
 
+TRAINED = {"dense": _dense_block, "ssm": _ssm_block}
+
+
 def check_trainable(cfg: ModelConfig, remat: bool = True,
                     remat_policy: str = "full") -> None:
-    if cfg.arch_type != "dense":
+    if cfg.arch_type not in TRAINED:
+        item = "M7.2" if cfg.arch_type == "hybrid" else "M7"
         raise NotImplementedError(
             f"{cfg.name}: training arch_type {cfg.arch_type!r} is not ported "
-            f"yet (ROADMAP M7; the ssm and hybrid training forward needs an "
-            f"SSD backward); the port trains the dense family")
+            f"yet (ROADMAP {item}); the port trains the families "
+            f"{tuple(TRAINED)}")
     if remat and remat_policy == "dots":
         raise NotImplementedError(
             "remat_policy 'dots' is not ported (ROADMAP P7); the port "
@@ -396,21 +405,24 @@ def check_trainable(cfg: ModelConfig, remat: bool = True,
 def model_forward(params: Dict, batch: Dict, cfg: ModelConfig,
                   remat: bool = True, remat_policy: str = "full"
                   ) -> Tuple[torch.Tensor, Dict]:
-    """Training forward of the dense family.  batch: tokens (B, S) and
-    labels (B, S) (< 0 = ignore).  Returns (mean loss, metrics dict).
+    """Training forward of the dense and SSM families.  batch: tokens (B, S)
+    and labels (B, S) (< 0 = ignore).  Returns (mean loss, metrics dict).
 
-    With ``remat`` each layer runs under ``torch.utils.checkpoint`` (its
-    activations are recomputed in the backward), as JAX wraps the scanned
-    layer in ``jax.checkpoint``.  The dense family has no auxiliary loss.
+    Each layer is JAX's ``_dense_block`` or ``_ssm_block`` (norm -> Mamba2
+    block -> residual).  With ``remat`` each layer runs under
+    ``torch.utils.checkpoint`` (its activations, the kernels' outputs
+    among them, are recomputed in the backward), as JAX wraps the scanned
+    layer in ``jax.checkpoint``.  Neither family has an auxiliary loss.
     """
     check_trainable(cfg, remat, remat_policy)
+    block_fn = TRAINED[cfg.arch_type]
     dtype = torch_dtype(cfg.dtype)
     x = params["embed"].to(dtype)[batch["tokens"]]
     for _, block, _ in _layers(cfg, params):
         if remat:
-            x = checkpoint(_dense_block, cfg, block, x, use_reentrant=False)
+            x = checkpoint(block_fn, cfg, block, x, use_reentrant=False)
         else:
-            x = _dense_block(cfg, block, x)
+            x = block_fn(cfg, block, x)
     x = apply_norm(cfg.norm, x, params["final_norm"])
     loss_sum, count = chunked_cross_entropy(x, _lm_head(cfg, params),
                                             batch["labels"])

@@ -24,7 +24,8 @@ from repro_torch.kernels.fused_ce.ce import fused_ce_stats, tile, vocab_splits
 from repro_torch.kernels.fused_ce.ref import (cross_entropy_ref,
                                               fused_ce_stats_ref)
 from repro_torch.kernels.ssd_scan import ssd_chunked
-from repro_torch.kernels.ssd_scan.ref import (ssd_intra_chunk_ref,
+from repro_torch.kernels.ssd_scan.ref import (ssd_chunked_ref,
+                                              ssd_intra_chunk_ref,
                                               ssd_sequential_ref)
 from repro_torch.kernels.ssd_scan.ssd import ssd_intra_chunk
 from repro_torch.kernels.swa_attention import swa_attention
@@ -62,6 +63,8 @@ def _card():
     (1, 700, 2, 128, 256, torch.bfloat16, 2 ** -7),
     (2, 200, 3, 64, 96, torch.bfloat16, 2 ** -7),
     (1, 100, 2, 8, 0, torch.bfloat16, 2 ** -7),
+    # the fleet executor's olmo-1b smoke jobs
+    (8, 32, 4, 64, 0, torch.bfloat16, 2 ** -7),
 ])
 def test_swa_flash_matches_plain_on_card(b, s, h, d, w, dtype, tol):
     dev = _card()
@@ -125,6 +128,14 @@ def _ssd_inputs(dev, bs, l, h, p, n, dtype=torch.float32, seed=0):
     (16, 128, 24, 64, 128, torch.bfloat16),  # mamba2-130m, batch 4 x 512
     (16, 128, 24, 64, 128, torch.float32),
     (16, 128, 64, 64, 64, torch.bfloat16),   # zamba2-1.2b, batch 4 x 512
+    # mamba2-130m training, 4 x 4096 tokens (splice 1) and 2 x 4096
+    # (splice 2): groups of 8 heads, 3 groups, several waves
+    (128, 128, 24, 64, 128, torch.bfloat16),
+    (64, 128, 24, 64, 128, torch.bfloat16),
+    # the fleet executor's mamba2-130m smoke jobs: 8 and 4 sequences of
+    # one 32-step chunk
+    (8, 32, 16, 32, 16, torch.bfloat16),
+    (4, 32, 16, 32, 16, torch.bfloat16),
     # bf16 in groups of 3 heads (64 chunks): the other head dims, a ragged
     # chunk, N not a multiple of 16, an odd N (rows not 16-byte aligned,
     # read element by element) and H 5 (a last group of 2)
@@ -187,6 +198,43 @@ def test_ssd_chunked_on_card_matches_recurrence_and_continues():
     torch.testing.assert_close(s2, final, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.float32, 1e-5),    # the same f32 arithmetic in another order
+    # the kernel's bf16 products split M and w B in three bf16 parts, the
+    # plain version's are f32: outputs within 1e-4 (SSD_TOL), gradients
+    # (the same plain backward on both) within 1e-3 of their largest entry
+    (torch.bfloat16, 1e-3),
+])
+def test_ssd_chunked_gradients_on_card(dtype, tol):
+    """Gradients in x, dt, a, b, c and the initial state through the
+    autograd function (the kernel forward, the plain recomputing backward)
+    against autograd through the plain chunked scan, at a ragged length.
+    The gradients of bf16 inputs are rounded to bf16 once on each side, so
+    where their f32 values differ in the last bits they may differ by one
+    bf16 ulp: 2**-7 relative on top of ``tol``."""
+    dev = _card()
+    ins = list(_ssd_inputs(dev, 2, 300, 24, 64, 128, dtype, seed=3))
+    ins.append(torch.randn(2, 24, 64, 128, device=dev))
+    g = torch.Generator(device=dev).manual_seed(4)
+    wy = torch.randn(2, 300, 24, 64, generator=g, device=dev)
+    ws = torch.randn(2, 24, 64, 128, generator=g, device=dev)
+    grads = []
+    for fn in (ssd_chunked, ssd_chunked_ref):
+        leaves = [t.detach().requires_grad_() for t in ins]
+        before = ssd_intra_chunk.launches
+        y, final = fn(*leaves[:5], 128, initial_state=leaves[5])
+        ((y.float() * wy).sum() + (final * ws).sum()).backward()
+        assert ssd_intra_chunk.launches == before + (fn is ssd_chunked)
+        grads.append([t.grad for t in leaves])
+    for got, want in zip(*grads):
+        assert got.dtype == want.dtype
+        scale = want.float().abs().max()
+        ulp = 2 ** -7 if got.dtype == torch.bfloat16 else 0
+        torch.testing.assert_close(got.float() / scale, want.float() / scale,
+                                   rtol=ulp, atol=tol)
+
+
 def _ce_inputs(dev, t, d, v, dtype, seed=0, tied=True):
     """hidden ~ N(0, 1) and head ~ 0.02 N(0, 1) (dense_init's scale), the
     head as ``embed.T`` (strides (1, d)) when ``tied``; labels in [-1, V)."""
@@ -214,6 +262,9 @@ def _ce_inputs(dev, t, d, v, dtype, seed=0, tied=True):
     (1000, 2048, 5000, torch.bfloat16, False),
     (300, 256, 777, torch.bfloat16, True),
     (300, 256, 777, torch.bfloat16, False),
+    # the fleet executor's smoke jobs (olmo-1b and mamba2-130m)
+    (256, 256, 512, torch.bfloat16, True),
+    (128, 256, 512, torch.bfloat16, True),
 ])
 def test_fused_ce_stats_matches_plain_on_card(t, d, v, dtype, tied):
     """lse and pick within 1e-4 of the plain version: both sum the same
@@ -359,6 +410,79 @@ def test_smoke_train_step_card_matches_cpu():
         assert 1 - firm.mean() < 0.05
         np.testing.assert_allclose(a[firm], b[firm], rtol=0, atol=1e-3 * lr)
         np.testing.assert_allclose(a[~firm], b[~firm], rtol=0, atol=0.2 * lr)
+
+
+@pytest.mark.cuda
+def test_mamba2_smoke_train_step_card_matches_cpu():
+    """One spliced step (splice 2) of the mamba2 smoke config at f32 from
+    one state on the card (``ssd_intra_chunk`` and ``fused_ce_stats``) and
+    on the CPU (their plain versions): loss and grad_norm at 1e-5; m and v
+    at 1e-5 of each leaf's largest entry; params at 1e-3 lr where the two
+    sides' gradients agree to 1e-3 relative (a relative change r of g moves
+    AdamW's first step by at most lr r / 4) and 0.2 lr on the rest, under
+    5% of each leaf (``tests/test_torch_ssm_train.py``)."""
+    dev = _card()
+    cfg = dataclasses.replace(get_smoke_config("mamba2-130m"),
+                              dtype="float32")
+    tcfg = TrainConfig(total_steps=40, warmup_steps=2, learning_rate=1e-3)
+    cpu_state = init_train_state(cfg, tcfg, device="cpu")
+    card_state = train_state_from_jax(train_state_to_numpy(cpu_state), cfg,
+                                      device=dev)
+    tokens, labels = DataPipeline(cfg.vocab_size, 96, 4, 4).next_batch()
+    step = build_train_step(cfg, tcfg, splice=2)
+    out = {}
+    for name, state, device in (("cpu", cpu_state, "cpu"),
+                                ("card", card_state, dev)):
+        batch = {"tokens": torch.as_tensor(tokens, device=device).long(),
+                 "labels": torch.as_tensor(labels, device=device).long()}
+        before = ssd_intra_chunk.launches
+        new, metrics = step(state, batch)
+        # 2 layers x 2 slices, again in remat's recomputation
+        assert ssd_intra_chunk.launches - before == (8 if name == "card"
+                                                     else 0)
+        out[name] = (train_state_to_numpy(new), metrics)
+    (cpu_new, cpu_m), (card_new, card_m) = out["cpu"], out["card"]
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(card_m[key].item(), cpu_m[key].item(),
+                                   rtol=1e-5)
+    lr = cpu_m["lr"].item()
+
+    def leaves(t):
+        if isinstance(t, dict):
+            return [x for val in t.values() for x in leaves(val)]
+        return [] if t is None else [t]
+
+    for part in ("m", "v"):
+        for a, b in zip(leaves(card_new["opt"][part]),
+                        leaves(cpu_new["opt"][part])):
+            scale = np.abs(b).max()
+            np.testing.assert_allclose(a / scale, b / scale, rtol=0,
+                                       atol=1e-5)
+    for a, b, ma, mb in zip(leaves(card_new["params"]),
+                            leaves(cpu_new["params"]),
+                            leaves(card_new["opt"]["m"]),
+                            leaves(cpu_new["opt"]["m"])):
+        firm = np.abs(ma - mb) <= 1e-3 * np.abs(mb)
+        assert 1 - firm.mean() < 0.05
+        np.testing.assert_allclose(a[firm], b[firm], rtol=0, atol=1e-3 * lr)
+        np.testing.assert_allclose(a[~firm], b[~firm], rtol=0, atol=0.2 * lr)
+
+
+@pytest.mark.cuda
+def test_executor_scenario_on_card_logs_as_on_cpu():
+    """tests/test_executor.py's preemption scenario on the card: the basic
+    olmo job is preempted by a premium mamba2 job and restored at the
+    exact step; every runtime lives on the card; the log equals the CPU's,
+    event for event."""
+    dev = _card()
+    from repro_torch.scheduler.executor import FleetExecutor, ManagedJob
+    from repro_torch.scheduler.job_table import TableJob
+    from repro_torch.scheduler.scenarios import (
+        tiered_fleet_with_real_preemption_and_resume as scenario)
+
+    logs = {str(device): scenario(FleetExecutor, ManagedJob, TableJob, device)
+            for device in ("cpu", dev)}
+    assert logs["cpu"] == logs[str(dev)]
 
 
 @pytest.mark.cuda

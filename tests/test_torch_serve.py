@@ -41,7 +41,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     names = proc.stdout.splitlines()[1].split()
     for mod in ("core.barrier", "core.checkpoint", "core.migration",
                 "kernels.checksum.fingerprint", "kernels.checksum.ops",
-                "kernels.checksum.ref", "utils.hashing", "utils.tree"):
+                "kernels.checksum.ref", "utils.hashing", "utils.tree",
+                "core.sla", "scheduler.executor", "scheduler.policy",
+                "scheduler.node_map", "launch.real_fleet"):
         assert f"repro_torch.{mod}" in names
 
 

@@ -133,9 +133,8 @@ def test_dense_family_only_and_dots_policy_raise():
              "labels": torch.zeros(1, 4, dtype=torch.long)}
     with pytest.raises(NotImplementedError, match="P7"):
         model_forward(params, batch, cfg, remat=True, remat_policy="dots")
-    with pytest.raises(NotImplementedError, match="M7"):
-        model_forward(params, batch, get_smoke_config("mamba2-130m"))
-    with pytest.raises(NotImplementedError, match="M7"):
+    # the SSM family trains (tests/test_torch_ssm_train.py); hybrid not yet
+    with pytest.raises(NotImplementedError, match=r"ROADMAP M7\.2"):
         init_train_state(get_smoke_config("zamba2-1.2b"), TrainConfig(),
                          device="cpu")
 

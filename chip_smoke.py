@@ -13,26 +13,32 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    olmo serving shape (bf16 and f32), at two ragged/windowed shapes, at
    the olmo-1b training shapes (B 4 and 2, S 4096, bf16), at head dims 80
    and 120 (bf16 and f32), at bf16 cases with a window shorter than S
-   and a ragged S and at phase 7's olmo-1b smoke shape; then, at the serving and the training shape, time the
-   kernel (back to back, and with the L2 flushed before each launch), the
-   plain version and PyTorch's ``scaled_dot_product_attention`` (the
-   yardstick; the port never calls it) beside the kernel's bound.
+   and a ragged S, at phase 7's olmo-1b smoke shape, at zamba2-1.2b's
+   training shapes (H 32, D 64, window 4096 = S) and granite-moe's serving
+   and training ones (H 24, D 64); then, at the olmo serving and training
+   shapes and the new ones (``SWA_TIMED``), time the kernel (back to back,
+   and with the L2 flushed before each launch), the plain version and
+   PyTorch's ``scaled_dot_product_attention`` (the yardstick; the port
+   never calls it) beside the kernel's bound.
 2b. Hold ``ssd_intra_chunk`` against its plain version at the mamba2-130m
    serving shape (bf16 and f32), the zamba2-1.2b one and bf16 cases in
    groups of heads (head dims 16, 32 and 128, a ragged chunk, N 40 and 33,
    H 5) and at the mamba2-130m training shapes (BC 128 and 64, groups of
-   8 heads) and phase 7's mamba2-130m smoke shapes; run the whole SSD
-   wrapper at a ragged length against the
+   8 heads), phase 7's mamba2-130m smoke shapes and zamba2-1.2b's training
+   shapes (BC 128 and 64, H 64, N 64); run the whole SSD wrapper at a
+   ragged length against the
    plain chunked scan, the O(L) recurrence and its own ``initial_state``
    continuation; time the kernel (back to back, and its device time by the
    profiler) and the plain version beside the kernel's bound at both
-   serving shapes and the training one at BC 128 (no PyTorch call
-   computes this function).
+   serving shapes and the mamba2 and zamba2 training ones at BC 128 (no
+   PyTorch call computes this function).
 2c. Hold ``fused_ce_stats`` against its plain version at the olmo-1b
    training shapes (T 16384 and 8192 tokens, d 2048, V 50304, bf16, the
    head read in place as ``embed.T``), at mamba2-130m's (the same T, d
-   768, V 50280), phase 7's smoke shapes (d 256, V 512, bf16) and a
-   ragged f32 case; compare the
+   768, V 50280), phase 7's smoke shapes (d 256, V 512, bf16), a ragged
+   f32 case, zamba2-1.2b's (d 2048, V 32000, an untied head read in place)
+   and granite-moe's (d 1536, V 49155, an untied head the wrapper copies
+   for TMA: 1 copy a call, asserted); compare the
    (sum, count) of ``fused_cross_entropy`` with the full-logits plain CE;
    time the kernel (back to back, and with the L2 flushed before each
    launch) and the plain version beside the kernel's bound, with cuBLAS's
@@ -51,15 +57,20 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    512 with random weights from seed 0: olmo-1b (16 layers, d_model 2048,
    bf16), then mamba2-130m (24 layers, d_model 768, bf16), then
    zamba2-1.2b (38 Mamba2 layers and 6 applications of one shared
-   attention block, d_model 2048, bf16).  Every kernel's launch count is
-   set to 0 just before each path and read just after (and the wrappers
-   must copy no operand for TMA on the way): olmo launches
+   attention block, d_model 2048, bf16), then granite-moe-3b-a800m (32
+   layers of attention with 24 query and 8 KV heads and 40 experts of
+   d_ff 512, top-8, d_model 1536, vocab 49155, bf16).  Every kernel's
+   launch count is set to 0 just before each path and read just after
+   (and the wrappers must copy no operand for TMA on the way): olmo
+   launches
    ``swa_flash`` once per layer; mamba2 ``ssd_intra_chunk`` once per layer;
-   zamba2 both, once per Mamba2 layer and once per shared block.  Then time
-   prefill and decode, profile one of each, and check decode-vs-prefill at
-   bf16.
+   zamba2 both, once per Mamba2 layer and once per shared block; granite
+   ``swa_flash`` once per layer.  Then time prefill and decode, profile one
+   of each, and check decode-vs-prefill at bf16 (MoE at a capacity factor
+   where nothing drops, as tests/test_decode_consistency.py).
 3b. f32 checks: decode-vs-prefill at full width for each model, and the
-   card path against the CPU path on the olmo and mamba2 smoke configs.
+   card path against the CPU path on the olmo, mamba2 and granite-moe smoke
+   configs.
 4. Train olmo-1b at full width (bf16 compute, f32 master weights and
    AdamW) through the port's ``ElasticRuntime``: logical world 4, global
    batch 4 of 4096 tokens, 3 steps at 4 physical devices (splice 1), then
@@ -106,7 +117,21 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    olmo-1b and mamba2-130m smoke jobs preempted, restored at the exact
    step, shrunk, failed and rolled back) with that file's assertions, and
    again on the CPU: each log must equal the CPU's.
-8. Print the ``kernels`` JSON line, the card's name and power limit, and as
+8. Train zamba2-1.2b at full width (38 Mamba2 layers in 6 groups of 6,
+   each group followed by the one shared attention block, then 2 tail
+   layers) through ``ElasticRuntime``, the path ``zamba2-1.2b-train``, on
+   phase 4's schedule and with its checks: 76 ``ssd_intra_chunk`` (38
+   layers, again in remat's recomputation of each group), 12 ``swa_flash``
+   and 1 ``fused_ce_stats`` per slice; splice 1 against splice 2 at 7
+   layers (one group and a tail layer).
+8b. f32, card against CPU: one training step of the zamba2 smoke config.
+9. Train granite-moe-3b-a800m at its widths (40 experts, top-8, vocab
+   49155) cut to ``MOE_TRAIN_LAYERS`` layers, the path
+   ``granite-moe-train``, on phase 4's schedule and with its checks: 2 L
+   ``swa_flash`` and 1 ``fused_ce_stats`` per slice, and the head copied
+   for TMA once per slice.
+9b. f32, card against CPU: one training step of the granite smoke config.
+10. Print the ``kernels`` JSON line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 It imports no JAX and nothing of the JAX package ``repro``.
@@ -145,8 +170,21 @@ KERNEL_CASES = [
     (1, 1000, 8, 128, 256, "bfloat16"),  # a window shorter than S
     (2, 333, 4, 120, 100, "bfloat16"),   # ragged S and a window
     (8, 32, 4, 64, 0, "bfloat16"),       # phase 7's olmo-1b smoke jobs
+    # zamba2-1.2b training (phase 8), splice 1 and 2: 32 heads of 64, its
+    # window of 4096 = S
+    (4, 4096, 32, 64, 4096, "bfloat16"),
+    (2, 4096, 32, 64, 4096, "bfloat16"),
+    # granite-moe-3b-a800m: serving (phase 3) and training (phase 9) at
+    # splice 1 and 2; 24 query heads of 64, the 8 KV heads repeated
+    (4, 512, 24, 64, 0, "bfloat16"),
+    (4, 4096, 24, 64, 0, "bfloat16"),
+    (2, 4096, 24, 64, 0, "bfloat16"),
 ]
-SERVE_CASE, TRAIN_CASE = KERNEL_CASES[0], KERNEL_CASES[4]  # timed
+# timed: (case, key suffix in the kernels line, iterations)
+SWA_TIMED = [(KERNEL_CASES[0], "", 200), (KERNEL_CASES[4], "_train", 20),
+             (KERNEL_CASES[13], "_zamba2_train", 20),
+             (KERNEL_CASES[15], "_granite", 200),
+             (KERNEL_CASES[16], "_granite_train", 20)]
 L2_FLUSH_BYTES = 64 << 20  # written between calls: more than the 50 MB L2
 # The kernel and the plain version both accumulate in f32 and differ in
 # the order of summation: 2e-5 at f32 (tests/test_kernels.py's bound).  At
@@ -176,12 +214,18 @@ SSD_CASES = [
     # phase 7's mamba2-130m smoke jobs: 8 and 4 sequences of one chunk
     (8, 32, 16, 32, 16, "bfloat16"),
     (4, 32, 16, 32, 16, "bfloat16"),
+    # zamba2-1.2b training (phase 8), splice 1 and 2: 64 heads, N 64, G 8
+    (128, 128, 64, 64, 64, "bfloat16"),
+    (64, 128, 64, 64, 64, "bfloat16"),
 ]
-SSD_TRAIN_CASE = SSD_CASES[10]           # timed
+# timed: (case, key suffix in the kernels line)
+SSD_TIMED = [(SSD_CASES[0], ""), (SSD_CASES[2], "_zamba2"),
+             (SSD_CASES[10], "_train"), (SSD_CASES[14], "_zamba2_train")]
 SSD_TOL = dict(rtol=1e-4, atol=1e-4)
 SSD_RAGGED = (1, 200, 2, 64, 32, 64)     # (B, L, H, P, N, chunk): wrapper
 
-# fused_ce_stats vs plain version: (T, d, V, dtype name, head as embed.T)
+# fused_ce_stats vs plain version: (T, d, V, dtype name, head as embed.T);
+# an untied head is a contiguous (d, V) tensor, as ``head.to(bf16)`` gives
 CE_CASES = [
     (16384, 2048, 50304, "bfloat16", True),  # olmo-1b training, splice 1
     (8192, 2048, 50304, "bfloat16", True),   # splice 2: one slice
@@ -193,8 +237,20 @@ CE_CASES = [
     # phase 7's smoke jobs (olmo-1b and mamba2-130m): d 256, V 512
     (256, 256, 512, "bfloat16", True),
     (128, 256, 512, "bfloat16", True),
+    # zamba2-1.2b training, splice 1 and 2: the untied (2048, 32000) head,
+    # read in place (its row stride a multiple of 8)
+    (16384, 2048, 32000, "bfloat16", False),
+    (8192, 2048, 32000, "bfloat16", False),
+    # granite-moe-3b-a800m training: the untied (1536, 49155) head, whose
+    # row stride is no multiple of 8, so the wrapper copies it K-major for
+    # TMA on every call (one copy per call, counted)
+    (16384, 1536, 49155, "bfloat16", False),
+    (8192, 1536, 49155, "bfloat16", False),
 ]
-CE_TIMED = [CE_CASES[0], CE_CASES[1], CE_CASES[3], CE_CASES[4]]
+# timed: (case, key suffix in the kernels line)
+CE_TIMED = [(CE_CASES[0], ""), (CE_CASES[1], "_t8192"),
+            (CE_CASES[3], "_t16384_d768"), (CE_CASES[4], "_t8192_d768"),
+            (CE_CASES[7], "_zamba2"), (CE_CASES[9], "_granite")]
 # Both sum the same f32 products (exact for bf16 operands) in another
 # order, over d <= 2048 terms; logits are about 1 and lse about 11
 CE_TOL = dict(rtol=1e-5, atol=1e-4)
@@ -208,6 +264,8 @@ PATHS = [
                      "fused_ce_stats": 0, "fingerprint_u32": 0}),
     ("zamba2-1.2b", {"swa_flash": 6, "ssd_intra_chunk": 38,
                      "fused_ce_stats": 0, "fingerprint_u32": 0}),
+    ("granite-moe-3b-a800m", {"swa_flash": 32, "ssd_intra_chunk": 0,
+                              "fused_ce_stats": 0, "fingerprint_u32": 0}),
 ]
 
 # olmo-1b training: logical world 4, global batch 4 x 4096 (the repo's
@@ -221,6 +279,14 @@ TRAIN_PATH = "olmo-1b train"
 # init; phase 2 holds swa_flash itself at the training shapes.
 TRAIN_TOL = dict(loss=1e-4, grad_norm=1e-4)
 SSM_TRAIN_PATH = "mamba2-130m-train"
+HYBRID_TRAIN_PATH = "zamba2-1.2b-train"
+MOE_TRAIN_PATH = "granite-moe-train"
+# granite-moe-3b-a800m trains at this depth, its widths, experts, top-k
+# and vocabulary kept: all 32 layers (3.37 B parameters) do not fit one
+# 80 GB card, where a step holds f32 params, m, v and gradients and AdamW
+# makes new params, m and v beside them (28 bytes a parameter at the
+# update, 94 GB at 32 layers)
+MOE_TRAIN_LAYERS = 22
 # Each training path: its kernels' launches per slice (remat runs each
 # layer's forward twice), its gradient leaves, the bounds of its first
 # loss (about ln V + sigma^2 / 2 with sigma^2 = d * 0.02^2: from ln V to
@@ -230,12 +296,41 @@ SSM_TRAIN_PATH = "mamba2-130m-train"
 # olmo's residual), and its y rounds to bf16 after a sum that differs
 # from the plain version's by up to 1e-4, so a grad_norm bound 10x olmo's.
 # ``f32_firm`` is phase 4b's / 6b's rule for the AdamW entries held to 1e-3
-# lr (see ``phase_train_f32``).
+# lr (see ``phase_train_f32``).  ``layers`` cuts the depth (0: the
+# config's), ``copies_per_slice`` the operands a wrapper copies for TMA
+# on each slice, ``check_layers`` and ``check_dtype`` the depth and dtype
+# of the splice check (zamba2: one group and a tail layer, so the shared
+# block runs).  zamba2's and granite's bounds were set before their first
+# run on a card: granite's first loss adds the aux loss, 0.01 E sum_e f_e
+# p_e with E = 48 padded experts, 0.012 a layer were the 40 real ones
+# used evenly.
 TRAIN_SPECS = {
     TRAIN_PATH: dict(arch="olmo-1b", phase="4",
                      per_slice={"swa_flash": 32, "fused_ce_stats": 1},
                      leaves=8, named=(), first_loss=(10.83, 11.6),
                      tol=TRAIN_TOL, f32_firm="|g| >= 1e-6"),
+    HYBRID_TRAIN_PATH: dict(arch="zamba2-1.2b", phase="8",
+                            per_slice={"ssd_intra_chunk": 76,
+                                       "swa_flash": 12, "fused_ce_stats": 1},
+                            leaves=21, named=("blocks/ssm/A_log",
+                                              "shared_attn/attn/wq",
+                                              "shared_attn/mlp/wg", "head"),
+                            first_loss=(10.37, 11.15),
+                            tol=dict(loss=1e-4, grad_norm=1e-3),
+                            f32_firm="the gradients agree to 1e-3 relative",
+                            check_layers=7),
+    MOE_TRAIN_PATH: dict(arch="granite-moe-3b-a800m", phase="9",
+                         layers=MOE_TRAIN_LAYERS,
+                         per_slice={"swa_flash": 2 * MOE_TRAIN_LAYERS,
+                                    "fused_ce_stats": 1},
+                         copies_per_slice={"fused_ce_stats": 1},
+                         leaves=13, named=("blocks/moe/router",
+                                           "blocks/moe/wi", "blocks/moe/wg",
+                                           "blocks/moe/wo", "head"),
+                         first_loss=(10.80, 11.47 + 0.0125 * MOE_TRAIN_LAYERS),
+                         tol=dict(loss=1e-4, grad_norm=1e-3),
+                         f32_firm="the gradients agree to 1e-3 relative",
+                         check_dtype="float32"),
     SSM_TRAIN_PATH: dict(arch="mamba2-130m", phase="6",
                          per_slice={"ssd_intra_chunk": 48,
                                     "fused_ce_stats": 1},
@@ -402,8 +497,11 @@ def phase_kernel(torch, swa_attention, swa_attention_ref):
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     stats = dict(max_abs_err=main_err)
-    for case, key, iters in ((SERVE_CASE, "", 200), (TRAIN_CASE, "_train", 20)):
+    for case, key, iters in SWA_TIMED:
         b, s, h, d, w, dname = case
+        if 0 < w < s:
+            raise ValueError(f"SDPA's is_causal is not the windowed mask of "
+                             f"{case}")
         dtype = getattr(torch, dname)
         q, k, v = (torch.randn(b, s, h, d, generator=gen, device=dev)
                    .to(dtype) for _ in range(3))
@@ -502,15 +600,13 @@ def phase_ssd_kernel(torch, ssd_intra_chunk, ssd_chunked, ref):
           f"{(torch.cat([y1, y2], 1) - y).abs().max().item()!r} (1e-4)",
           flush=True)
 
-    # times at the mamba2 shape (the kernels line's ms), the zamba2 one and
-    # the mamba2 training one
-    mamba2, zamba2, train = (_time_ssd(torch, gen, ssd_intra_chunk, ref, case)
-                             for case in (SSD_CASES[0], SSD_CASES[2],
-                                          SSD_TRAIN_CASE))
-    zamba2 = {f"{key}_zamba2": val for key, val in zamba2.items()}
-    train = {f"{key}_train": val for key, val in train.items()}
-    return dict(mamba2, **zamba2, **train, max_abs_err=main_err,
-                library_ms=None)
+    # times at the mamba2 serving shape (the kernels line's ms) and the
+    # others of SSD_TIMED, under their suffixes
+    stats = dict(max_abs_err=main_err, library_ms=None)
+    for case, suffix in SSD_TIMED:
+        timed = _time_ssd(torch, gen, ssd_intra_chunk, ref, case)
+        stats.update({f"{key}{suffix}": val for key, val in timed.items()})
+    return stats
 
 
 def _time_ssd(torch, gen, ssd_intra_chunk, ref, case):
@@ -645,8 +741,17 @@ def phase_ce_kernel(torch, ce, ce_ref, fused_cross_entropy):
     for t, d, v, dname, tied in CE_CASES:
         dtype = getattr(torch, dname)
         h, w, lab = _ce_inputs(torch, gen, t, d, v, dtype, tied)
+        copies = ce.fused_ce_stats.copies
         lse, pick = ce.fused_ce_stats(h, w, lab)
         torch.cuda.synchronize()
+        copies = ce.fused_ce_stats.copies - copies
+        # TMA (the bf16 path) reads a head in place when a stride is 1 and
+        # the other a multiple of 8 elements; an untied (d, V) head with V
+        # no multiple of 8 is copied once
+        want_copies = int(dname == "bfloat16" and not tied and v % 8 != 0)
+        if copies != want_copies:
+            raise AssertionError(f"{copies} head copies at {(t, d, v)}, "
+                                 f"expected {want_copies}")
         want_lse, want_pick = ce_ref.fused_ce_stats_ref(h, w, lab)
         for name, got, want in (("lse", lse, want_lse),
                                 ("pick", pick, want_pick)):
@@ -664,7 +769,8 @@ def phase_ce_kernel(torch, ce, ce_ref, fused_cross_entropy):
         errs = [(lse - want_lse).abs().max().item(),
                 (pick - want_pick)[lab >= 0].abs().max().item()]
         print(f"T={t} d={d} V={v} {dname}, head "
-              f"{'embed.T' if tied else '(d, V)'}: max |lse - plain| "
+              f"{'embed.T' if tied else '(d, V)'} ({copies} copied for "
+              f"TMA): max |lse - plain| "
               f"{errs[0]!r}, max |pick - plain| {errs[1]!r} (rtol 1e-5, "
               f"atol 1e-4); fused_cross_entropy (sum, count) "
               f"({loss.item()!r}, {count.item()!r}), full-logits plain sum "
@@ -675,7 +781,7 @@ def phase_ce_kernel(torch, ce, ce_ref, fused_cross_entropy):
         del h, w, lab, want_lse, want_pick
 
     times = {}
-    for t, d, v, dname, tied in CE_TIMED:
+    for (t, d, v, dname, tied), suffix in CE_TIMED:
         dtype = getattr(torch, dname)
         h, w, lab = _ce_inputs(torch, gen, t, d, v, dtype, tied)
         gemm_ms = time_ms(torch, lambda: h @ w, 10)
@@ -694,21 +800,14 @@ def phase_ce_kernel(torch, ce, ce_ref, fused_cross_entropy):
               f"{plain_ms!r} ms, bound {bound_ms!r} ms ({bound_by}); "
               f"library: none (no PyTorch call computes (lse, pick))",
               flush=True)
-        times[t, d] = dict(ms=(kernel_ms + kernel_ms_2) / 2,
-                           plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, ms_l2_flushed=cold_ms,
-                           gemm_ms=gemm_ms)
+        times.update({f"{key}{suffix}": val for key, val in dict(
+            ms=(kernel_ms + kernel_ms_2) / 2, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, ms_l2_flushed=cold_ms,
+            gemm_ms=gemm_ms).items()})
         del h, w, lab
         torch.cuda.empty_cache()
-    # the kernels line's ms: olmo-1b at splice 1; its splice 2 by the
-    # suffix _t8192 (as in earlier runs), mamba2-130m's by _t{T}_d768
-    main_t, main_d = CE_TIMED[0][:2]
-    suffix = {(t, d): f"_t{t}" if d == main_d else f"_t{t}_d{d}"
-              for t, d in times}
-    return dict(times.pop((main_t, main_d)), max_abs_err=main_err,
-                library_ms=None,
-                **{f"{key}{suffix[td]}": val for td, stats in times.items()
-                   for key, val in stats.items()})
+    # the kernels line's ms: olmo-1b at splice 1 (no suffix)
+    return dict(times, max_abs_err=main_err, library_ms=None)
 
 
 @contextlib.contextmanager
@@ -777,12 +876,53 @@ def phase_train(torch, card, counters, path=TRAIN_PATH):
     spec = TRAIN_SPECS[path]
     print(f"\n== phase {spec['phase']}: {path}: {spec['arch']} training at "
           f"full width through ElasticRuntime", flush=True)
-    cfg = get_config(spec["arch"])
+    full = get_config(spec["arch"])
+    cfg = dataclasses.replace(full, num_layers=spec.get("layers")
+                              or full.num_layers)
     n_params = cfg.param_count()
+    if cfg != full:
+        print(f"reduced: {full.num_layers} -> {cfg.num_layers} layers, "
+              f"{full.param_count()} -> {n_params} parameters (28 bytes a "
+              f"parameter at the update: {28 * n_params} bytes); widths, "
+              f"experts, top-k and vocabulary kept", flush=True)
+    # 6 N T counts the parameters each token touches (MoE: its top-k
+    # experts)
+    n_active = cfg.active_param_count()
     steps = len(TRAIN["physical"])
     tcfg = TrainConfig(total_steps=steps, warmup_steps=2, learning_rate=1e-3)
     world, gb, seq = TRAIN["world"], TRAIN["batch"], TRAIN["seq"]
     tokens_per_step = gb * seq
+
+    # splice invariance from one state at full width with 4 layers (or the
+    # path's ``check_layers``), before the job's state takes the card: two
+    # steps at splice 1 against two at splice 2 (test_elastic.py's bound).
+    # MoE where nothing drops, without the aux loss and in the path's
+    # ``check_dtype``: a slice routes its own tokens, its aux loss is a
+    # statistic of its own tokens (E sum_e f_e p_e over half the batch is
+    # not that over the whole), and bf16 router logits from GEMMs of
+    # another row count may round differently and flip a near tie
+    cfg4 = _no_drops(dataclasses.replace(
+        cfg, num_layers=spec.get("check_layers", 4),
+        dtype=spec.get("check_dtype", cfg.dtype)))
+    if cfg4.moe is not None:
+        cfg4 = dataclasses.replace(cfg4, moe=dataclasses.replace(
+            cfg4.moe, router_aux_weight=0.0))
+    state = init_train_state(cfg4, tcfg, device="cuda")
+    losses = {}
+    for physical in (4, 2):
+        rt4 = ElasticRuntime(cfg4, tcfg, world, physical, gb, seq,
+                             state=state, device="cuda")
+        losses[rt4.splice] = [r["loss"] for r in rt4.run_steps(2)]
+        del rt4
+    rel = [abs(a - b) / abs(a) for a, b in zip(losses[1], losses[2])]
+    print(f"splice invariance, {cfg.name} width with {cfg4.num_layers} "
+          f"layers, {cfg4.dtype}, two steps from one state: splice 1 "
+          f"{losses[1]!r}, splice 2 {losses[2]!r}, rel diff {rel!r} (bound "
+          f"1e-3)", flush=True)
+    if not max(rel) < 1e-3:
+        raise AssertionError("splice 1 and splice 2 disagree")
+    del state
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     rt = ElasticRuntime(cfg, tcfg, world, TRAIN["physical"][0], gb, seq,
@@ -790,7 +930,8 @@ def phase_train(torch, card, counters, path=TRAIN_PATH):
     torch.cuda.synchronize()
     print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, vocab "
           f"{cfg.vocab_size}, compute {cfg.dtype}, f32 master weights and "
-          f"AdamW: {n_params} parameters; world {world}, global batch {gb} x "
+          f"AdamW: {n_params} parameters ({n_active} per token); world "
+          f"{world}, global batch {gb} x "
           f"{seq}; state made in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # the kernel path against the plain path on the first batch (these
@@ -845,13 +986,13 @@ def phase_train(torch, card, counters, path=TRAIN_PATH):
         s = rec["splice"]
         want = {name: spec["per_slice"].get(name, 0) * s
                 for name in counters}
-        share = 6 * n_params * tokens_per_step / (ms / 1e3) / \
+        share = 6 * n_active * tokens_per_step / (ms / 1e3) / \
             _peak_flops(torch, torch.bfloat16)
         print(f"[{card}] step {rec['step']} splice {s}: {ms!r} ms, "
               f"{tokens_per_step * 1e3 / ms!r} tokens/s, loss "
               f"{rec['loss']!r}, grad_norm {rec['grad_norm']!r}, peak memory "
-              f"{peak} bytes, 6 N T / time = {share!r} of the bf16 dense "
-              f"peak; launches {launched}", flush=True)
+              f"{peak} bytes, 6 N_active T / time = {share!r} of the bf16 "
+              f"dense peak; launches {launched}", flush=True)
         if launched != want:
             raise AssertionError(f"expected launches {want} in a step at "
                                  f"splice {s}, saw {launched}")
@@ -859,11 +1000,15 @@ def phase_train(torch, card, counters, path=TRAIN_PATH):
             raise AssertionError(f"non-finite metrics {rec}")
         records.append(dict(rec, ms=ms))
     launches = {name: fn.launches for name, fn in counters.items()}
+    slices = sum(r["splice"] for r in records)
+    want_copies = {name: n + spec.get("copies_per_slice", {}).get(name, 0)
+                   * slices for name, n in copies.items()}
     print(f"launches over the {steps} steps: {launches}; operands copied "
-          f"for TMA: {_copies(counters)} (before: {copies})", flush=True)
-    if _copies(counters) != copies:
-        raise AssertionError("the kernels' wrappers copied an operand on the "
-                             "training path")
+          f"for TMA: {_copies(counters)} (before: {copies}; expected "
+          f"{want_copies}, {slices} slices)", flush=True)
+    if _copies(counters) != want_copies:
+        raise AssertionError("the kernels' wrappers copied operands on the "
+                             "training path other than expected")
 
     # ln V + sigma^2 / 2, sigma^2 = d * 0.02^2 (dense_init scale 0.02)
     expect = math.log(cfg.vocab_size) + cfg.d_model * 0.02 ** 2 / 2
@@ -879,24 +1024,6 @@ def phase_train(torch, card, counters, path=TRAIN_PATH):
     step_s = np.mean([r["ms"] for r in records if r["splice"] == 2]) / 1e3
     torch.cuda.empty_cache()
 
-    # splice invariance from one state at full width with 4 layers: two
-    # steps at splice 1 against two at splice 2 (test_elastic.py's bound)
-    cfg4 = dataclasses.replace(cfg, num_layers=4)
-    state = init_train_state(cfg4, tcfg, device="cuda")
-    losses = {}
-    for physical in (4, 2):
-        rt4 = ElasticRuntime(cfg4, tcfg, world, physical, gb, seq,
-                             state=state, device="cuda")
-        losses[rt4.splice] = [r["loss"] for r in rt4.run_steps(2)]
-        del rt4
-    rel = [abs(a - b) / abs(a) for a, b in zip(losses[1], losses[2])]
-    print(f"splice invariance, {cfg.name} width with 4 layers, two steps from "
-          f"one state: splice 1 {losses[1]!r}, splice 2 {losses[2]!r}, rel "
-          f"diff {rel!r} (bound 1e-3)", flush=True)
-    if not max(rel) < 1e-3:
-        raise AssertionError("splice 1 and splice 2 disagree")
-    del state
-    torch.cuda.empty_cache()
     return launches, rt, float(step_s)
 
 
@@ -1320,16 +1447,16 @@ def phase_serve(torch, card, arch, expected, counters, tools):
           f" peak device memory {peak_bytes} bytes", flush=True)
 
     # decode-vs-prefill at full width, bf16: prefill(s) + one decode step
-    # against prefill(s + 1).  The two paths round bf16 activations at other
-    # places through every layer; that moved the largest of 4 x 50304
-    # olmo-1b logits by 0.126 in this script's first run (spread of the
-    # logits about 1).  A fault of structure (cache slot, mask, position,
+    # against prefill(s + 1) (MoE where nothing drops, ``_no_drops``).  The
+    # two paths round bf16 activations at other places through every
+    # layer; that moved the largest of 4 x 50304 olmo-1b logits by 0.126 in
+    # this script's first run (spread of the logits about 1).  A fault of structure (cache slot, mask, position,
     # carried SSM state) moves logits by their own spread.  So the bound is
     # a quarter of the logits' standard deviation; the tight check is the
     # f32 one in phase 3b.
     with torch.inference_mode():
-        dec, ref = _decode_vs_prefill(torch, engine.params, cfg, tokens,
-                                      prefill_fn, decode_step_fn)
+        dec, ref = _decode_vs_prefill(torch, engine.params, _no_drops(cfg),
+                                      tokens, prefill_fn, decode_step_fn)
     diff = (dec - ref).abs()
     err, bound = diff.max().item(), 0.25 * ref.std().item()
     print(f"{arch} decode vs prefill, bf16, batch {BATCH}, prompt {PROMPT}: "
@@ -1372,6 +1499,23 @@ def _profile(torch, label, fn, top=8):
               f"{e.key[:100]}", flush=True)
 
 
+def _no_drops(cfg):
+    """``cfg``, for MoE at the capacity factor E_tot / k, whose capacity
+    holds a call's every token at every expert, so nothing drops.  Which
+    entries drop depends on the tokens of the call (a decode step routes B
+    of them, a prefill B S, a slice of a spliced step B S / s), so only
+    where nothing drops must decode agree with prefill, and splice 1 with
+    splice 2 (tests/test_decode_consistency.py gives MoE a factor of 64
+    for the same reason)."""
+    if cfg.moe is None:
+        return cfg
+    from repro_torch.models.moe import EXPERT_PAD
+
+    e_tot = -(-cfg.moe.num_experts // EXPERT_PAD) * EXPERT_PAD
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=e_tot / cfg.moe.top_k))
+
+
 def _decode_vs_prefill(torch, params, cfg, tokens, prefill_fn,
                        decode_step_fn):
     s = tokens.shape[1] - 1
@@ -1388,11 +1532,13 @@ def phase_checks(torch, get_config, get_smoke_config, init_params,
 
     print("\n== phase 3b: f32 checks", flush=True)
     # decode-vs-prefill at full width in f32 (tests/test_decode_consistency
-    # bound, 2e-3); the SSM models on a prompt of 256, two whole chunks, so
-    # that the decode step's prefill(257) has a ragged third chunk
+    # bound, 2e-3; MoE where nothing drops); the SSM models on a prompt
+    # of 256, two whole chunks, so that the decode step's prefill(257) has
+    # a ragged third chunk
     for arch, prompt in (("olmo-1b", 128), ("mamba2-130m", 256),
-                         ("zamba2-1.2b", 256)):
-        cfg = dataclasses.replace(get_config(arch), dtype="float32")
+                         ("zamba2-1.2b", 256), ("granite-moe-3b-a800m", 128)):
+        cfg = _no_drops(dataclasses.replace(get_config(arch),
+                                            dtype="float32"))
         params = init_params(cfg, 0, device="cuda")
         tokens = torch.as_tensor(np.random.default_rng(2).integers(
             0, cfg.vocab_size, (2, prompt + 1)), device="cuda")
@@ -1409,7 +1555,7 @@ def phase_checks(torch, get_config, get_smoke_config, init_params,
     # the card path (CUDA kernels) against the CPU path (plain versions) on
     # the smoke configs, same weights, f32: logits within 1e-4 and the same
     # greedy tokens
-    for arch in ("olmo-1b", "mamba2-130m"):
+    for arch in ("olmo-1b", "mamba2-130m", "granite-moe-3b-a800m"):
         cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
         cpu_params = init_params(cfg, 0, device="cpu")
         gpu_params = params_from_jax(params_to_numpy(cpu_params), cfg, "cuda")
@@ -1505,6 +1651,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_f32(SSM_TRAIN_PATH)
     by_path[FLEET_PATH] = phase_fleet(torch, counters)
+    for path in (HYBRID_TRAIN_PATH, MOE_TRAIN_PATH):
+        by_path[path], rt, _ = phase_train(torch, card, counters, path)
+        del rt
+        torch.cuda.empty_cache()
+        phase_train_f32(path)
 
     kernels = []
     for name, route, source, replaces, stats in (

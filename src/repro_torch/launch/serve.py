@@ -13,11 +13,14 @@ port's ``ServingEngine`` (port of ``repro.launch.serve``).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b --full \\
         --batch 4 --prompt-len 512 --decode-tokens 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --full
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch granite-moe-3b-a800m --full
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --arch zamba2-1.2b
 
 ``--arch`` takes a family the port serves: dense (olmo-1b and the other
-dense configs), ssm (mamba2-130m) and hybrid (zamba2-1.2b).
+dense configs), moe (granite-moe-3b-a800m, qwen3-moe-30b-a3b), ssm
+(mamba2-130m) and hybrid (zamba2-1.2b).
 """
 
 from __future__ import annotations

@@ -10,15 +10,22 @@ mid-run resizes: the paper's §2 lifecycle as one command, on ``--device``
     PYTHONPATH=src python -m repro_torch.launch.train --full \\
         --global-batch 4 --seq-len 4096 --steps 5 --resize 3:2
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
+        --full --global-batch 4 --seq-len 4096 --steps 5 --resize 3:2
+
 Without ``--full`` it trains the reduced smoke config.  The port trains the
-dense family (olmo-1b and the other dense configs) and the SSM family
-(``--arch mamba2-130m``).  ``--ckpt-every N``
+families dense (olmo-1b and the other dense configs), moe
+(``--arch granite-moe-3b-a800m``, qwen3-moe-30b-a3b), ssm
+(``--arch mamba2-130m``) and hybrid (``--arch zamba2-1.2b``).
+``--layers N`` cuts the depth (granite-moe-3b-a800m's 32 layers do not
+fit one 80 GB card with f32 weights and AdamW).  ``--ckpt-every N``
 takes a transparent checkpoint of every logical worker every N steps into
 an in-memory content-deduped store, as the JAX command does.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -34,6 +41,8 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", default="olmo-1b")
     ap.add_argument("--full", action="store_true",
                     help="use the full config (default: reduced smoke)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the config to this many layers (0: keep)")
     ap.add_argument("--steps", type=int, default=40)
     ap.add_argument("--world", type=int, default=4,
                     help="logical world size (constant for the job)")
@@ -54,6 +63,8 @@ def main(argv=None) -> None:
         ap.error(f"--ckpt-every must be >= 0 (0: no checkpoints); got "
                  f"{args.ckpt_every}")
     cfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     tcfg = TrainConfig(total_steps=args.steps, warmup_steps=2,
                        learning_rate=args.lr)
     resizes = {}

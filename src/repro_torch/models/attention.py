@@ -84,11 +84,11 @@ def attention_forward(params: Dict, x: torch.Tensor, *, num_heads: int,
     """Full attention layer (projections + kernel core), causal self-attention.
 
     Cross attention (``kv``) and non-causal attention belong to the
-    audio/VLM families, not yet ported (ROADMAP M7).
+    audio/VLM families, not yet ported (ROADMAP M7.4).
     """
     if kv is not None or not causal:
         raise NotImplementedError(
-            "cross and non-causal attention are not ported yet (ROADMAP M7)")
+            "cross and non-causal attention are not ported yet (ROADMAP M7.4)")
     return self_attention_with_kv(params, x, num_heads=num_heads,
                                   rope_theta=rope_theta, window=window)[0]
 

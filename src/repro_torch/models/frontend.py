@@ -1,8 +1,8 @@
 """Modality frontend stubs (port of ``repro.models.frontend``).
 
-The dense, SSM and hybrid families take tokens only.  The audio and VLM
+The dense, MoE, SSM and hybrid families take tokens only.  The audio and VLM
 families consume synthetic frame/patch embeddings; they are not ported yet
-(ROADMAP M7).
+(ROADMAP M7.4).
 """
 from __future__ import annotations
 
@@ -17,5 +17,5 @@ def synth_extra_inputs(cfg: ModelConfig, batch: int) -> Dict:
     if cfg.arch_type in ("audio", "vlm"):
         raise NotImplementedError(
             f"{cfg.name}: inputs of arch_type {cfg.arch_type!r} are not "
-            f"ported yet (ROADMAP M7)")
+            f"ported yet (ROADMAP M7.4)")
     return {}

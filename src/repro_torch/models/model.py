@@ -1,8 +1,8 @@
-"""Model assembly: serving for the dense, SSM and hybrid families, training
-for the dense and SSM families (port of ``repro.models.model``).
+"""Model assembly: serving and training for the dense, MoE, SSM and
+hybrid families (port of ``repro.models.model``).
 
 - ``init_params``       — parameter tree, layers stacked on axis 0 as in JAX
-- ``model_forward``     — training forward -> (loss, metrics) (dense, SSM)
+- ``model_forward``     — training forward -> (loss, metrics)
 - ``prefill_fn``        — prompt processing -> (last logits, decode state)
 - ``decode_step_fn``    — one-token decode with the KV and SSM caches
 - ``init_decode_state`` — cache allocation
@@ -13,31 +13,37 @@ norm parameters.  Layers run as a Python loop over views of the stacked
 weights, where JAX scans; the hybrid family (zamba2) walks the same group
 layout as JAX's group scans: ``n_groups`` groups of ``attn_every`` Mamba2
 layers, each followed by the one shared attention block, then the tail
-layers.  The MoE, VLM and audio families raise.
+layers.  The audio and VLM families raise (ROADMAP M7.4).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.fused_ce import fused_cross_entropy
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import apply_norm, dense_init, norm_param
 from repro_torch.utils import torch_dtype
 
-PORTED = ("dense", "ssm", "hybrid")
+PORTED = ("dense", "moe", "ssm", "hybrid")
+# the families still to port, with their ROADMAP item
+NOT_PORTED = "audio and vlm (ROADMAP M7.4)"
 
 
 def check_ported(cfg: ModelConfig) -> None:
     if cfg.arch_type not in PORTED:
         raise NotImplementedError(
-            f"{cfg.name}: arch_type {cfg.arch_type!r} is not ported yet "
-            f"(ROADMAP M7); the port serves the families {PORTED}")
+            f"{cfg.name}: arch_type {cfg.arch_type!r} is not ported yet; "
+            f"the port serves the families {PORTED}, not yet "
+            f"{NOT_PORTED}")
 
 
 # ---------------------------------------------------------------------------
@@ -56,6 +62,15 @@ def _init_attn_block(cfg: ModelConfig, gen: torch.Generator, device,
         "mlp": mlp_lib.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp,
                                 device=device, dtype=dtype),
     }
+
+
+def _init_moe_block(cfg: ModelConfig, gen: torch.Generator, device,
+                    dtype) -> Dict:
+    block = _init_attn_block(cfg, gen, device, dtype)
+    del block["mlp"]
+    block["moe"] = moe_lib.init_moe(gen, cfg.d_model, cfg.d_ff, cfg.mlp,
+                                    cfg.moe, device=device, dtype=dtype)
+    return block
 
 
 def _init_ssm_block(cfg: ModelConfig, gen: torch.Generator, device,
@@ -111,11 +126,12 @@ def num_shared_attn(cfg: ModelConfig) -> int:
 
 def _layers(cfg: ModelConfig, params: Dict):
     """(kind, block, cache index) for each block in the order JAX's (group)
-    scans run them: ("attn", layer, i) for dense layer i; ("ssm", layer, i)
-    for Mamba2 layer i; for hybrid, ("attn", shared block, g) after the
-    layers of group g, then the tail layers."""
+    scans run them: ("attn", layer, i) for dense and MoE layer i (its
+    feed-forward is the MLP or the expert layer); ("ssm", layer, i) for
+    Mamba2 layer i; for hybrid, ("attn", shared block, g) after the layers
+    of group g, then the tail layers."""
     blocks = _unstack(params["blocks"], cfg.num_layers)
-    if cfg.arch_type == "dense":
+    if cfg.arch_type in ("dense", "moe"):
         for i in range(cfg.num_layers):
             yield "attn", blocks[i], i
         return
@@ -147,7 +163,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device,
     if not cfg.tie_embeddings:
         params["head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                     device=device, dtype=dtype)
-    block = _init_attn_block if cfg.arch_type == "dense" else _init_ssm_block
+    block = {"dense": _init_attn_block, "moe": _init_moe_block}.get(
+        cfg.arch_type, _init_ssm_block)
     params["blocks"] = _stack([block(cfg, gen, device, dtype)
                                for _ in range(cfg.num_layers)])
     if cfg.arch_type == "hybrid":
@@ -160,24 +177,60 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device,
 # Building blocks
 # ---------------------------------------------------------------------------
 
-def _mlp_res(cfg: ModelConfig, block: Dict, x: torch.Tensor) -> torch.Tensor:
-    h = apply_norm(cfg.norm, x, block["ln2"])
-    return x + mlp_lib.mlp_forward(block["mlp"], h, cfg.mlp)
-
-
-def _dense_block(cfg: ModelConfig, block: Dict, x: torch.Tensor
-                 ) -> torch.Tensor:
+def _self_attn(cfg: ModelConfig, block: Dict, x: torch.Tensor
+               ) -> torch.Tensor:
     h = apply_norm(cfg.norm, x, block["ln1"])
     h = attn_lib.attention_forward(
         block["attn"], h, num_heads=cfg.num_heads,
         num_kv_heads=cfg.num_kv_heads, rope_theta=cfg.rope_theta,
         window=cfg.sliding_window)
-    return _mlp_res(cfg, block, x + h)
+    return x + h
+
+
+def _mlp_res(cfg: ModelConfig, block: Dict, x: torch.Tensor) -> torch.Tensor:
+    h = apply_norm(cfg.norm, x, block["ln2"])
+    return x + mlp_lib.mlp_forward(block["mlp"], h, cfg.mlp)
+
+
+def _moe_res(cfg: ModelConfig, block: Dict, x: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The expert layer's residual and its weighted aux loss."""
+    h = apply_norm(cfg.norm, x, block["ln2"])
+    out, aux = moe_lib.moe_forward(block["moe"], h, cfg.mlp, cfg.moe)
+    return x + out, aux
+
+
+def _ffn_res(cfg: ModelConfig, block: Dict, x: torch.Tensor) -> torch.Tensor:
+    """The block's feed-forward residual: its MLP, or its expert layer
+    (whose aux loss serving drops, as JAX's prefill and decode do)."""
+    if "moe" in block:
+        return _moe_res(cfg, block, x)[0]
+    return _mlp_res(cfg, block, x)
+
+
+def _dense_block(cfg: ModelConfig, block: Dict, x: torch.Tensor
+                 ) -> torch.Tensor:
+    return _mlp_res(cfg, block, _self_attn(cfg, block, x))
+
+
+def _moe_block(cfg: ModelConfig, block: Dict, x: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _moe_res(cfg, block, _self_attn(cfg, block, x))
 
 
 def _ssm_block(cfg: ModelConfig, block: Dict, x: torch.Tensor) -> torch.Tensor:
     h = apply_norm(cfg.norm, x, block["ln1"])
     return x + ssm_lib.ssm_forward(block["ssm"], h, cfg.ssm)
+
+
+def _hybrid_group(cfg: ModelConfig, group, x: torch.Tensor) -> torch.Tensor:
+    """One group of the hybrid family: its Mamba2 layers, then the shared
+    attention block (JAX's ``group`` step of the hybrid scan).
+    ``group`` is (the group's layers, the shared block)."""
+    blocks, shared = group
+    for block in blocks:
+        x = _ssm_block(cfg, block, x)
+    return _mlp_res(cfg, shared, _self_attn(cfg, shared, x))
 
 
 def _lm_head(cfg: ModelConfig, params: Dict) -> torch.Tensor:
@@ -217,9 +270,9 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int, *, device,
 
     - ``pos``: a Python int, so the host decides cache slots and masks
       without reading the device;
-    - ``kv`` {"k", "v": (L, B, cache_len, KVH, hd)} in ``dtype`` for dense,
-      with one entry per shared-attention application (n_groups) for
-      hybrid;
+    - ``kv`` {"k", "v": (L, B, cache_len, KVH, hd)} in ``dtype`` for
+      dense and MoE, with one entry per shared-attention application
+      (n_groups) for hybrid;
     - ``ssm`` {"conv": (L, B, W-1, d_in+2N) in ``conv_dtype``, "ssm": (L, B,
       H, P, N) f32} for ssm and hybrid.  ``conv_dtype`` is f32 as in JAX's
       ``init_decode_state``; prefill passes the working dtype, which JAX's
@@ -227,8 +280,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int, *, device,
     """
     check_ported(cfg)
     state: Dict = {"pos": 0}
-    n_kv = {"dense": cfg.num_layers, "hybrid": num_shared_attn(cfg)}.get(
-        cfg.arch_type)
+    n_kv = {"dense": cfg.num_layers, "moe": cfg.num_layers,
+            "hybrid": num_shared_attn(cfg)}.get(cfg.arch_type)
     if n_kv is not None:
         shape = (n_kv, batch, cache_length(cfg, seq_len), cfg.num_kv_heads,
                  cfg.resolved_head_dim())
@@ -245,13 +298,14 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int, *, device,
 def _attn_decode(cfg: ModelConfig, block: Dict, x: torch.Tensor, kv: Dict,
                  i: int, pos: int) -> torch.Tensor:
     """Attention block ``block`` on one token with KV cache entry ``i``,
-    written in place; then the MLP."""
+    written in place; then its feed-forward.  The MoE layer routes the
+    step's B tokens with their own capacity, as JAX's decode does."""
     h = apply_norm(cfg.norm, x, block["ln1"])
     h, _ = attn_lib.decode_attention(
         block["attn"], h, {"k": kv["k"][i], "v": kv["v"][i]}, pos,
         num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
         rope_theta=cfg.rope_theta, window=cfg.sliding_window)
-    return _mlp_res(cfg, block, x + h)
+    return _ffn_res(cfg, block, x + h)
 
 
 def _ssm_decode(cfg: ModelConfig, block: Dict, x: torch.Tensor, sstate: Dict,
@@ -313,13 +367,13 @@ def _fill_cache(cfg: ModelConfig, cache_k: torch.Tensor, cache_v: torch.Tensor,
 def _attn_prefill(cfg: ModelConfig, block: Dict, x: torch.Tensor, kv: Dict,
                   i: int) -> torch.Tensor:
     """Attention block over the prompt, filling KV cache entry ``i``; then
-    the MLP."""
+    its feed-forward."""
     hn = apply_norm(cfg.norm, x, block["ln1"])
     h, k, v = attn_lib.self_attention_with_kv(
         block["attn"], hn, num_heads=cfg.num_heads,
         rope_theta=cfg.rope_theta, window=cfg.sliding_window)
     _fill_cache(cfg, kv["k"][i], kv["v"][i], k, v)
-    return _mlp_res(cfg, block, x + h)
+    return _ffn_res(cfg, block, x + h)
 
 
 def _ssm_prefill_layer(cfg: ModelConfig, block: Dict, x: torch.Tensor,
@@ -385,49 +439,89 @@ def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
                                labels.reshape(-1))
 
 
-TRAINED = {"dense": _dense_block, "ssm": _ssm_block}
+# each family's unit of the training forward: a layer, or for hybrid a
+# group of layers and the shared block (``_train_units``)
+TRAINED = {"dense": _dense_block, "moe": _moe_block, "ssm": _ssm_block,
+           "hybrid": _hybrid_group}
+
+# the products JAX's ``dots_saveable`` keeps: matmuls (einsum and matmul
+# reach these in ATen)
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default,
+                   torch.ops.aten.baddbmm.default})
 
 
-def check_trainable(cfg: ModelConfig, remat: bool = True,
-                    remat_policy: str = "full") -> None:
+def _save_dots(_ctx, op, *_args, **_kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def check_trainable(cfg: ModelConfig) -> None:
     if cfg.arch_type not in TRAINED:
-        item = "M7.2" if cfg.arch_type == "hybrid" else "M7"
         raise NotImplementedError(
             f"{cfg.name}: training arch_type {cfg.arch_type!r} is not ported "
-            f"yet (ROADMAP {item}); the port trains the families "
-            f"{tuple(TRAINED)}")
-    if remat and remat_policy == "dots":
-        raise NotImplementedError(
-            "remat_policy 'dots' is not ported (ROADMAP P7); the port "
-            'recomputes whole layers ("full")')
+            f"yet; the port trains the families {tuple(TRAINED)}, not yet "
+            f"{NOT_PORTED}")
+
+
+def _remat_wrapper(remat: bool, policy: str = "full"):
+    """``run(fn, *args)``: ``fn(*args)`` as it is, or under one
+    ``torch.utils.checkpoint`` (JAX's ``_remat_wrapper``): "dots" saves
+    the matmul outputs and recomputes the rest in the backward (JAX's
+    ``dots_saveable``; the kernels' outputs are recomputed), any other
+    policy recomputes the whole unit."""
+    if not remat:
+        return lambda fn, *args: fn(*args)
+    extra = {}
+    if policy == "dots":
+        extra["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False,
+                                        **extra)
+
+
+def _train_units(cfg: ModelConfig, params: Dict):
+    """The units the training forward runs in turn, each under one
+    checkpoint with remat, as JAX checkpoints each step of its scans: one
+    per layer, or for hybrid one per group (its ``attn_every`` Mamba2
+    layers and the shared block, whose weights so get the sum of the
+    gradients of their applications), then one per tail layer.  Returns
+    [(function, block)]."""
+    blocks = _unstack(params["blocks"], cfg.num_layers)
+    if cfg.arch_type != "hybrid":
+        return [(TRAINED[cfg.arch_type], block) for block in blocks]
+    n, per, _ = group_layout(cfg)
+    groups = [(_hybrid_group, (blocks[g * per:(g + 1) * per],
+                               params["shared_attn"])) for g in range(n)]
+    return groups + [(_ssm_block, block) for block in blocks[n * per:]]
 
 
 def model_forward(params: Dict, batch: Dict, cfg: ModelConfig,
                   remat: bool = True, remat_policy: str = "full"
                   ) -> Tuple[torch.Tensor, Dict]:
-    """Training forward of the dense and SSM families.  batch: tokens (B, S)
-    and labels (B, S) (< 0 = ignore).  Returns (mean loss, metrics dict).
+    """Training forward.  batch: tokens (B, S) and labels (B, S) (< 0 =
+    ignore).  Returns (mean loss, metrics dict).
 
-    Each layer is JAX's ``_dense_block`` or ``_ssm_block`` (norm -> Mamba2
-    block -> residual).  With ``remat`` each layer runs under
-    ``torch.utils.checkpoint`` (its activations, the kernels' outputs
-    among them, are recomputed in the backward), as JAX wraps the scanned
-    layer in ``jax.checkpoint``.  Neither family has an auxiliary loss.
+    The layers run as JAX's ``_scan_blocks`` runs them (``_train_units``),
+    each unit under ``_remat_wrapper(remat, remat_policy)``.  The loss is
+    the mean CE plus the MoE layers' summed aux losses (zero for the
+    other families).
     """
-    check_trainable(cfg, remat, remat_policy)
-    block_fn = TRAINED[cfg.arch_type]
+    check_trainable(cfg)
+    run = _remat_wrapper(remat, remat_policy)
     dtype = torch_dtype(cfg.dtype)
     x = params["embed"].to(dtype)[batch["tokens"]]
-    for _, block, _ in _layers(cfg, params):
-        if remat:
-            x = checkpoint(block_fn, cfg, block, x, use_reentrant=False)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for fn, block in _train_units(cfg, params):
+        if cfg.arch_type == "moe":
+            x, layer_aux = run(fn, cfg, block, x)
+            aux = aux + layer_aux
         else:
-            x = block_fn(cfg, block, x)
+            x = run(fn, cfg, block, x)
     x = apply_norm(cfg.norm, x, params["final_norm"])
     loss_sum, count = chunked_cross_entropy(x, _lm_head(cfg, params),
                                             batch["labels"])
     ce = loss_sum / torch.clamp(count, min=1.0)
-    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     return ce + aux, {"ce": ce, "aux": aux, "tokens": count}
 
 

@@ -1,4 +1,4 @@
-"""ZeRO partial sharding, the placement rule (port of part of
+"""ZeRO partial sharding, the placement rules (port of part of
 ``repro.optim.zero``, paper §5.4).
 
 A job whose optimizer state is sharded ``shard_factor``-way over a DP
@@ -7,6 +7,22 @@ of the same ZeRO shard are spliced together.  The partition specs of the
 JAX module belong to the multi-GPU slice (ROADMAP M9).
 """
 from __future__ import annotations
+
+from typing import List
+
+
+def shard_group(rank: int, dp_degree: int, shard_factor: int) -> int:
+    """Which ZeRO shard a DP rank holds: ranks {i, i + shard_factor, ...}
+    hold the same shard, the groups that may be spliced together."""
+    max_splice_factor(dp_degree, shard_factor)
+    return rank % shard_factor
+
+
+def spliceable_groups(dp_degree: int, shard_factor: int) -> List[List[int]]:
+    """Groups of DP ranks holding identical optimizer shards (spliceable)."""
+    return [[r for r in range(dp_degree)
+             if shard_group(r, dp_degree, shard_factor) == g]
+            for g in range(shard_factor)]
 
 
 def max_splice_factor(dp_degree: int, shard_factor: int) -> int:

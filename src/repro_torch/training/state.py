@@ -22,7 +22,7 @@ def init_train_state(cfg: ModelConfig, tcfg: TrainConfig, seed: int = 0, *,
                      device) -> TrainState:
     """f32 parameters from ``seed`` (as JAX's ``init_params`` default), zero
     AdamW moments, step 0 (an int32 scalar on ``device``)."""
-    check_trainable(cfg, tcfg.remat, tcfg.remat_policy)
+    check_trainable(cfg)
     params = init_params(cfg, seed, device=device, dtype=torch.float32)
     return {"params": params, "opt": adamw_init(params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}

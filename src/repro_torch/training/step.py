@@ -71,7 +71,7 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, splice: int = 1,
     summed (need, ack) ``barrier`` payload.  The returned state holds new
     tensors; the one passed in is left as it was.
     """
-    check_trainable(cfg, tcfg.remat, tcfg.remat_policy)
+    check_trainable(cfg)
 
     def train_step(state: Dict, batch: Dict, barrier_flags=None):
         loss, grads = loss_and_grads(state["params"], batch, cfg, tcfg,

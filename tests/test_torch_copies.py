@@ -15,8 +15,10 @@ import pytest
 SRC = Path(__file__).resolve().parents[1] / "src"
 CONFIGS = sorted(p.name for p in (SRC / "repro" / "configs").glob("*.py"))
 COPIES = ([f"configs/{name}" for name in CONFIGS]
-          + ["data/pipeline.py", "utils/hashing.py", "core/barrier.py",
-             "core/sla.py"]
+          + ["data/pipeline.py", "utils/hashing.py"]
+          + [f"core/{name}.py" for name in (
+              "barrier", "sla", "buffers", "device_proxy", "splicing",
+              "validation")]
           + [f"scheduler/{name}.py" for name in (
               "curves", "costs", "types", "reliability", "telemetry",
               "job_table", "node_map", "policy")])

@@ -49,6 +49,11 @@ def _card():
     # 4096, where the kv-tile loop runs 32 times deeper than at S 512
     (4, 4096, 16, 128, 0, torch.bfloat16, 2 ** -7),
     (2, 4096, 16, 128, 0, torch.bfloat16, 2 ** -7),
+    # zamba2-1.2b training (32 heads of 64, its window of 4096 = S) and
+    # granite-moe-3b-a800m serving and training (24 heads of 64)
+    (4, 4096, 32, 64, 4096, torch.bfloat16, 2 ** -7),
+    (4, 512, 24, 64, 0, torch.bfloat16, 2 ** -7),
+    (4, 4096, 24, 64, 0, torch.bfloat16, 2 ** -7),
     # f32: the same f32 arithmetic summed in another order
     (4, 512, 16, 128, 0, torch.float32, 2e-5),
     (2, 200, 3, 64, 96, torch.float32, 2e-5),
@@ -132,6 +137,8 @@ def _ssd_inputs(dev, bs, l, h, p, n, dtype=torch.float32, seed=0):
     # (splice 2): groups of 8 heads, 3 groups, several waves
     (128, 128, 24, 64, 128, torch.bfloat16),
     (64, 128, 24, 64, 128, torch.bfloat16),
+    # zamba2-1.2b training, splice 1: 64 heads in groups of 8, N 64
+    (128, 128, 64, 64, 64, torch.bfloat16),
     # the fleet executor's mamba2-130m smoke jobs: 8 and 4 sequences of
     # one 32-step chunk
     (8, 32, 16, 32, 16, torch.bfloat16),
@@ -265,17 +272,25 @@ def _ce_inputs(dev, t, d, v, dtype, seed=0, tied=True):
     # the fleet executor's smoke jobs (olmo-1b and mamba2-130m)
     (256, 256, 512, torch.bfloat16, True),
     (128, 256, 512, torch.bfloat16, True),
+    # zamba2-1.2b's untied (2048, 32000) head, read in place, and
+    # granite-moe-3b-a800m's (1536, 49155), copied for TMA
+    (16384, 2048, 32000, torch.bfloat16, False),
+    (16384, 1536, 49155, torch.bfloat16, False),
 ])
 def test_fused_ce_stats_matches_plain_on_card(t, d, v, dtype, tied):
     """lse and pick within 1e-4 of the plain version: both sum the same
     f32 products (exact at bf16) in another order, over d <= 2048 terms of
-    logits about 1; labels outside [0, V) give pick = -1e30 in both."""
+    logits about 1; labels outside [0, V) give pick = -1e30 in both.  A
+    bf16 head is copied for TMA only when it is untied and V is no
+    multiple of 8."""
     dev = _card()
     h, w, lab = _ce_inputs(dev, t, d, v, dtype, tied=tied)
-    before = fused_ce_stats.launches
+    before, copies = fused_ce_stats.launches, fused_ce_stats.copies
     lse, pick = fused_ce_stats(h, w, lab)
     torch.cuda.synchronize()
     assert fused_ce_stats.launches == before + 1
+    assert fused_ce_stats.copies - copies == int(
+        dtype == torch.bfloat16 and not tied and v % 8 != 0)
     want_lse, want_pick = fused_ce_stats_ref(h, w, lab)
     assert lse.shape == pick.shape == (t, 1)
     torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
@@ -440,6 +455,70 @@ def test_mamba2_smoke_train_step_card_matches_cpu():
         # 2 layers x 2 slices, again in remat's recomputation
         assert ssd_intra_chunk.launches - before == (8 if name == "card"
                                                      else 0)
+        out[name] = (train_state_to_numpy(new), metrics)
+    (cpu_new, cpu_m), (card_new, card_m) = out["cpu"], out["card"]
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(card_m[key].item(), cpu_m[key].item(),
+                                   rtol=1e-5)
+    lr = cpu_m["lr"].item()
+
+    def leaves(t):
+        if isinstance(t, dict):
+            return [x for val in t.values() for x in leaves(val)]
+        return [] if t is None else [t]
+
+    for part in ("m", "v"):
+        for a, b in zip(leaves(card_new["opt"][part]),
+                        leaves(cpu_new["opt"][part])):
+            scale = np.abs(b).max()
+            np.testing.assert_allclose(a / scale, b / scale, rtol=0,
+                                       atol=1e-5)
+    for a, b, ma, mb in zip(leaves(card_new["params"]),
+                            leaves(cpu_new["params"]),
+                            leaves(card_new["opt"]["m"]),
+                            leaves(cpu_new["opt"]["m"])):
+        firm = np.abs(ma - mb) <= 1e-3 * np.abs(mb)
+        assert 1 - firm.mean() < 0.05
+        np.testing.assert_allclose(a[firm], b[firm], rtol=0, atol=1e-3 * lr)
+        np.testing.assert_allclose(a[~firm], b[~firm], rtol=0, atol=0.2 * lr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,layers,per_slice", [
+    # 5 layers: two groups of 2 Mamba2 layers with the shared block, and
+    # a tail layer; under remat each layer's kernel runs twice
+    ("zamba2-1.2b", 5, {"ssd_intra_chunk": 10, "swa_flash": 4}),
+    ("granite-moe-3b-a800m", 2, {"ssd_intra_chunk": 0, "swa_flash": 4}),
+])
+def test_new_family_smoke_train_step_card_matches_cpu(arch, layers,
+                                                      per_slice):
+    """One spliced step (splice 2) of the hybrid and MoE smoke configs at
+    f32 from one state on the card and on the CPU, held as the mamba2 one
+    above: loss and grad_norm at 1e-5, m and v at 1e-5 of each leaf's
+    largest entry, params at 1e-3 lr where the two sides' gradients agree
+    to 1e-3 relative and 0.2 lr on the rest (under 5% of each leaf).  The
+    kernels launch per slice as counted in ``per_slice``."""
+    dev = _card()
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
+                              num_layers=layers)
+    tcfg = TrainConfig(total_steps=40, warmup_steps=2, learning_rate=1e-3)
+    cpu_state = init_train_state(cfg, tcfg, device="cpu")
+    card_state = train_state_from_jax(train_state_to_numpy(cpu_state), cfg,
+                                      device=dev)
+    tokens, labels = DataPipeline(cfg.vocab_size, 96, 4, 4).next_batch()
+    step = build_train_step(cfg, tcfg, splice=2)
+    counters = {"ssd_intra_chunk": ssd_intra_chunk, "swa_flash": swa_flash}
+    out = {}
+    for name, state, device in (("cpu", cpu_state, "cpu"),
+                                ("card", card_state, dev)):
+        batch = {"tokens": torch.as_tensor(tokens, device=device).long(),
+                 "labels": torch.as_tensor(labels, device=device).long()}
+        before = {key: fn.launches for key, fn in counters.items()}
+        new, metrics = step(state, batch)
+        launched = {key: fn.launches - before[key]
+                    for key, fn in counters.items()}
+        assert launched == {key: 2 * n if name == "card" else 0
+                            for key, n in per_slice.items()}
         out[name] = (train_state_to_numpy(new), metrics)
     (cpu_new, cpu_m), (card_new, card_m) = out["cpu"], out["card"]
     for key in ("loss", "grad_norm"):

@@ -43,7 +43,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                 "kernels.checksum.fingerprint", "kernels.checksum.ops",
                 "kernels.checksum.ref", "utils.hashing", "utils.tree",
                 "core.sla", "scheduler.executor", "scheduler.policy",
-                "scheduler.node_map", "launch.real_fleet"):
+                "scheduler.node_map", "launch.real_fleet", "core.buffers",
+                "core.device_proxy", "core.splicing", "core.validation",
+                "models.moe"):
         assert f"repro_torch.{mod}" in names
 
 
@@ -54,7 +56,7 @@ def test_engine_without_device_raises_where_there_is_no_card():
         pt_engine.ServingEngine(get_smoke_config("olmo-1b"))
 
 
-@pytest.mark.parametrize("arch", ["whisper-base", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("arch", ["whisper-base", "llama-3.2-vision-11b"])
 def test_engine_raises_for_families_not_ported(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt_engine.ServingEngine(get_smoke_config(arch), device="cpu")

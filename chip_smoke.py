@@ -14,12 +14,15 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    the olmo-1b training shapes (B 4 and 2, S 4096, bf16), at head dims 80
    and 120 (bf16 and f32), at bf16 cases with a window shorter than S
    and a ragged S, at phase 7's olmo-1b smoke shape, at zamba2-1.2b's
-   training shapes (H 32, D 64, window 4096 = S) and granite-moe's serving
-   and training ones (H 24, D 64); then, at the olmo serving and training
-   shapes and the new ones (``SWA_TIMED``), time the kernel (back to back,
+   training shapes (H 32, D 64, window 4096 = S), granite-moe's serving
+   and training ones (H 24, D 64), h2o-danube-3-4b's prefill (B 2, S
+   6144, H 32, D 120, window 4096 < S), llama-3.2-vision-11b's prefill
+   (H 32, D 128) and whisper-base's prefill and training ones (H 8, D 64);
+   then, at the shapes of ``SWA_TIMED``, time the kernel (back to back,
    and with the L2 flushed before each launch), the plain version and
-   PyTorch's ``scaled_dot_product_attention`` (the yardstick; the port
-   never calls it) beside the kernel's bound.
+   PyTorch's ``scaled_dot_product_attention`` (the yardstick, with the
+   window as a boolean mask where it is shorter than S; the port never
+   calls it) beside the kernel's bound.
 2b. Hold ``ssd_intra_chunk`` against its plain version at the mamba2-130m
    serving shape (bf16 and f32), the zamba2-1.2b one and bf16 cases in
    groups of heads (head dims 16, 32 and 128, a ragged chunk, N 40 and 33,
@@ -37,8 +40,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    head read in place as ``embed.T``), at mamba2-130m's (the same T, d
    768, V 50280), phase 7's smoke shapes (d 256, V 512, bf16), a ragged
    f32 case, zamba2-1.2b's (d 2048, V 32000, an untied head read in place)
-   and granite-moe's (d 1536, V 49155, an untied head the wrapper copies
-   for TMA: 1 copy a call, asserted); compare the
+   granite-moe's (d 1536, V 49155, an untied head the wrapper copies
+   for TMA: 1 copy a call, asserted) and whisper-base's (d 512, V 51865,
+   copied likewise); compare the
    (sum, count) of ``fused_cross_entropy`` with the full-logits plain CE;
    time the kernel (back to back, and with the L2 flushed before each
    launch) and the plain version beside the kernel's bound, with cuBLAS's
@@ -59,18 +63,32 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    zamba2-1.2b (38 Mamba2 layers and 6 applications of one shared
    attention block, d_model 2048, bf16), then granite-moe-3b-a800m (32
    layers of attention with 24 query and 8 KV heads and 40 experts of
-   d_ff 512, top-8, d_model 1536, vocab 49155, bf16).  Every kernel's
+   d_ff 512, top-8, d_model 1536, vocab 49155, bf16), h2o-danube-3-4b
+   (24 layers, 32 heads of 120, window 4096, bf16) on 2 prompts of 6,144
+   (``SERVE_SHAPES``: past the window, so prefill fills the KV ring and
+   every decode step wraps it), whisper-base (6 encoder and 6 decoder
+   layers, d_model 512, encoder frames (4, 1500, 512)) and
+   llama-3.2-vision-11b (40 layers and 8 cross blocks, 32 query and 8 KV
+   heads of 128, image embeddings (4, 1601, 1280)), their cross gates set
+   to [0.3, 0.9) so that the encoder and the cross caches reach the
+   tokens.  Every kernel's
    launch count is set to 0 just before each path and read just after
    (and the wrappers must copy no operand for TMA on the way): olmo
    launches
    ``swa_flash`` once per layer; mamba2 ``ssd_intra_chunk`` once per layer;
-   zamba2 both, once per Mamba2 layer and once per shared block; granite
-   ``swa_flash`` once per layer.  Then time prefill and decode, profile one
-   of each, and check decode-vs-prefill at bf16 (MoE at a capacity factor
-   where nothing drops, as tests/test_decode_consistency.py).
-3b. f32 checks: decode-vs-prefill at full width for each model, and the
-   card path against the CPU path on the olmo, mamba2 and granite-moe smoke
-   configs.
+   zamba2 both, once per Mamba2 layer and once per shared block; granite,
+   h2o-danube, whisper (its decoder) and llama-vision ``swa_flash`` once
+   per layer (the encoder and cross attention run a plain core).  Then
+   time prefill and decode, profile one of each, and check
+   decode-vs-prefill at bf16 (MoE at a capacity factor where nothing
+   drops, as tests/test_decode_consistency.py; h2o-danube over 3 decode
+   steps past the wrap).
+3b. f32 checks: decode-vs-prefill at full width for each model
+   (h2o-danube from a prompt of 4,160 past its window), and the card path
+   against the CPU path on the olmo, mamba2 and granite-moe smoke configs;
+   on the h2o-danube (a prompt of 160 past its window of 128, 40 decode
+   steps), whisper and llama-vision smoke configs, gates set, decode
+   against prefill on the card and the card against the CPU.
 4. Train olmo-1b at full width (bf16 compute, f32 master weights and
    AdamW) through the port's ``ElasticRuntime``: logical world 4, global
    batch 4 of 4096 tokens, 3 steps at 4 physical devices (splice 1), then
@@ -131,7 +149,18 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    ``swa_flash`` and 1 ``fused_ce_stats`` per slice, and the head copied
    for TMA once per slice.
 9b. f32, card against CPU: one training step of the granite smoke config.
-10. Print the ``kernels`` JSON line, the card's name and power limit, and as
+10. Train whisper-base at full width (6 encoder and 6 decoder layers,
+   encoder frames drawn once by the runtime, cross gates set), the path
+   ``whisper-base-train``, on phase 4's schedule and with its checks: 12
+   ``swa_flash`` (the decoder's self-attention, again in remat's
+   recomputation) and 1 ``fused_ce_stats`` per slice, the (512, 51865)
+   head copied for TMA once per slice.
+10b. f32, card against CPU: one training step of the whisper smoke config.
+11. Run a seeded fleet trace (failures, the serving tier, scaling curves)
+   through the port's ``FleetSimulator``, the path ``fleet-sim``: numpy on
+   the host, no kernel; it prints the digest of every decision (the JAX
+   simulator's, on the CPU) and its wall time.
+12. Print the ``kernels`` JSON line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 It imports no JAX and nothing of the JAX package ``repro``.
@@ -179,12 +208,26 @@ KERNEL_CASES = [
     (4, 512, 24, 64, 0, "bfloat16"),
     (4, 4096, 24, 64, 0, "bfloat16"),
     (2, 4096, 24, 64, 0, "bfloat16"),
+    # h2o-danube-3-4b's prefill (phase 3): 32 heads of 120, its window of
+    # 4096 shorter than S 6144, so the mask cuts both ends of each row
+    (2, 6144, 32, 120, 4096, "bfloat16"),
+    # llama-3.2-vision-11b's prefill: 32 heads of 128 (the 8 KV heads
+    # repeated); whisper-base's prefill (8 heads of 64) and its training
+    # slices (phase 10) at splice 1 and 2
+    (4, 512, 32, 128, 0, "bfloat16"),
+    (4, 512, 8, 64, 0, "bfloat16"),
+    (4, 4096, 8, 64, 0, "bfloat16"),
+    (2, 4096, 8, 64, 0, "bfloat16"),
 ]
 # timed: (case, key suffix in the kernels line, iterations)
 SWA_TIMED = [(KERNEL_CASES[0], "", 200), (KERNEL_CASES[4], "_train", 20),
              (KERNEL_CASES[13], "_zamba2_train", 20),
              (KERNEL_CASES[15], "_granite", 200),
-             (KERNEL_CASES[16], "_granite_train", 20)]
+             (KERNEL_CASES[16], "_granite_train", 20),
+             (KERNEL_CASES[18], "_h2o", 20),
+             (KERNEL_CASES[19], "_llama_vision", 200),
+             (KERNEL_CASES[20], "_whisper", 200),
+             (KERNEL_CASES[21], "_whisper_train", 20)]
 L2_FLUSH_BYTES = 64 << 20  # written between calls: more than the 50 MB L2
 # The kernel and the plain version both accumulate in f32 and differ in
 # the order of summation: 2e-5 at f32 (tests/test_kernels.py's bound).  At
@@ -246,11 +289,16 @@ CE_CASES = [
     # TMA on every call (one copy per call, counted)
     (16384, 1536, 49155, "bfloat16", False),
     (8192, 1536, 49155, "bfloat16", False),
+    # whisper-base training, splice 1 and 2: the untied (512, 51865) head,
+    # copied for TMA as granite's (one copy per call)
+    (16384, 512, 51865, "bfloat16", False),
+    (8192, 512, 51865, "bfloat16", False),
 ]
 # timed: (case, key suffix in the kernels line)
 CE_TIMED = [(CE_CASES[0], ""), (CE_CASES[1], "_t8192"),
             (CE_CASES[3], "_t16384_d768"), (CE_CASES[4], "_t8192_d768"),
-            (CE_CASES[7], "_zamba2"), (CE_CASES[9], "_granite")]
+            (CE_CASES[7], "_zamba2"), (CE_CASES[9], "_granite"),
+            (CE_CASES[11], "_whisper"), (CE_CASES[12], "_whisper_t8192")]
 # Both sum the same f32 products (exact for bf16 operands) in another
 # order, over d <= 2048 terms; logits are about 1 and lse about 11
 CE_TOL = dict(rtol=1e-5, atol=1e-4)
@@ -266,7 +314,28 @@ PATHS = [
                      "fused_ce_stats": 0, "fingerprint_u32": 0}),
     ("granite-moe-3b-a800m", {"swa_flash": 32, "ssd_intra_chunk": 0,
                               "fused_ce_stats": 0, "fingerprint_u32": 0}),
+    ("h2o-danube-3-4b", {"swa_flash": 24, "ssd_intra_chunk": 0,
+                         "fused_ce_stats": 0, "fingerprint_u32": 0}),
+    ("whisper-base", {"swa_flash": 6, "ssd_intra_chunk": 0,
+                      "fused_ce_stats": 0, "fingerprint_u32": 0}),
+    ("llama-3.2-vision-11b", {"swa_flash": 40, "ssd_intra_chunk": 0,
+                              "fused_ce_stats": 0, "fingerprint_u32": 0}),
 ]
+# the paths whose traffic is not (BATCH, PROMPT): h2o-danube-3-4b serves a
+# prompt of 6,144 tokens, past its 4,096-token window, at batch 2
+SERVE_SHAPES = {"h2o-danube-3-4b": (2, 6144)}
+# decode steps of the bf16 decode-vs-prefill check: h2o-danube's each
+# write a ring slot over the oldest position
+DECODE_CHECK_STEPS = {"h2o-danube-3-4b": 3}
+# that check's bound in units of the logits' standard deviation (0.25
+# unless named; see ``phase_serve``).  llama-3.2-vision-11b rounds bf16
+# activations through 48 blocks (40 layers, 8 cross blocks) over 4 x
+# 128,256 logits, where olmo-1b's 0.25 was set on 16 layers and 4 x 50,304:
+# its first run on a card read a max |diff| of 0.382 against 0.25 std =
+# 0.320, with a mean |diff| of 0.061 (a fault of structure moves logits by
+# their own spread, about 1.28).  Its bound is 0.5 std; the structural
+# check is the f32 one at full width in phase 3b (2e-3), which it passes.
+DECODE_BF16_BOUND = {"llama-3.2-vision-11b": 0.5}
 
 # olmo-1b training: logical world 4, global batch 4 x 4096 (the repo's
 # train_4k shape, batch cut from 256 to fit one card); 3 steps at 4
@@ -281,6 +350,7 @@ TRAIN_TOL = dict(loss=1e-4, grad_norm=1e-4)
 SSM_TRAIN_PATH = "mamba2-130m-train"
 HYBRID_TRAIN_PATH = "zamba2-1.2b-train"
 MOE_TRAIN_PATH = "granite-moe-train"
+AUDIO_TRAIN_PATH = "whisper-base-train"
 # granite-moe-3b-a800m trains at this depth, its widths, experts, top-k
 # and vocabulary kept: all 32 layers (3.37 B parameters) do not fit one
 # 80 GB card, where a step holds f32 params, m, v and gradients and AdamW
@@ -303,7 +373,10 @@ MOE_TRAIN_LAYERS = 22
 # block runs).  zamba2's and granite's bounds were set before their first
 # run on a card: granite's first loss adds the aux loss, 0.01 E sum_e f_e
 # p_e with E = 48 padded experts, 0.012 a layer were the 40 real ones
-# used evenly.
+# used evenly.  whisper-base's were set before its first run on a card
+# too: its cross gates are set to [0.3, 0.9) (``gates``), which moves the
+# loss by a few hundredths at most from ln V + sigma^2 / 2 = 10.959; its
+# (512, 51865) head is copied for TMA on every slice, as granite's.
 TRAIN_SPECS = {
     TRAIN_PATH: dict(arch="olmo-1b", phase="4",
                      per_slice={"swa_flash": 32, "fused_ce_stats": 1},
@@ -331,6 +404,17 @@ TRAIN_SPECS = {
                          tol=dict(loss=1e-4, grad_norm=1e-3),
                          f32_firm="the gradients agree to 1e-3 relative",
                          check_dtype="float32"),
+    AUDIO_TRAIN_PATH: dict(arch="whisper-base", phase="10",
+                           per_slice={"swa_flash": 12, "fused_ce_stats": 1},
+                           copies_per_slice={"fused_ce_stats": 1},
+                           leaves=33, named=("cross/gate", "cross/attn/wk",
+                                             "encoder/blocks/attn/wq",
+                                             "encoder/final_norm/scale",
+                                             "head"),
+                           first_loss=(10.85, 11.35),
+                           tol=dict(loss=1e-4, grad_norm=1e-3),
+                           f32_firm="the gradients agree to 1e-3 relative",
+                           gates=True),
     SSM_TRAIN_PATH: dict(arch="mamba2-130m", phase="6",
                          per_slice={"ssd_intra_chunk": 48,
                                     "fused_ce_stats": 1},
@@ -499,9 +583,13 @@ def phase_kernel(torch, swa_attention, swa_attention_ref):
     stats = dict(max_abs_err=main_err)
     for case, key, iters in SWA_TIMED:
         b, s, h, d, w, dname = case
+        # SDPA's is_causal is the mask where the window is 0 or S; a
+        # shorter window goes in as a boolean (S, S) mask (True: attend)
+        sdpa_kw = dict(is_causal=True)
         if 0 < w < s:
-            raise ValueError(f"SDPA's is_causal is not the windowed mask of "
-                             f"{case}")
+            pos = torch.arange(s, device=dev)
+            sdpa_kw = dict(attn_mask=(pos[None, :] <= pos[:, None])
+                           & (pos[None, :] > pos[:, None] - w))
         dtype = getattr(torch, dname)
         q, k, v = (torch.randn(b, s, h, d, generator=gen, device=dev)
                    .to(dtype) for _ in range(3))
@@ -511,7 +599,7 @@ def phase_kernel(torch, swa_attention, swa_attention_ref):
         plain_ms = time_ms(torch, lambda: swa_attention_ref(qt, kt, vt,
                                                             window=w),
                            max(3, iters // 10), 1)
-        library_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True),
+        library_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, **sdpa_kw),
                              iters)
         kernel_ms_2 = time_ms(torch, lambda: swa_attention(q, k, v, window=w),
                               iters)
@@ -535,7 +623,7 @@ def phase_kernel(torch, swa_attention, swa_attention_ref):
                       f"bound_ms{key}": bound_ms,
                       f"bound_by{key}": bound_by,
                       f"library_ms{key}": library_ms})
-        del q, k, v, qt, kt, vt
+        del q, k, v, qt, kt, vt, sdpa_kw
         torch.cuda.empty_cache()
     return stats
 
@@ -844,7 +932,8 @@ def _first_batch_grads(torch, rt, loss_and_grads, global_norm):
     tokens, labels = rt.pipeline.batch_for_ranks(range(rt.world_size),
                                                  step=0)
     batch = {"tokens": torch.as_tensor(tokens, device="cuda").long(),
-             "labels": torch.as_tensor(labels, device="cuda").long()}
+             "labels": torch.as_tensor(labels, device="cuda").long(),
+             **rt.extra_inputs}
     loss, grads = loss_and_grads(rt.state["params"], batch, rt.cfg, rt.tcfg)
     norms = {}
 
@@ -908,6 +997,8 @@ def phase_train(torch, card, counters, path=TRAIN_PATH):
         cfg4 = dataclasses.replace(cfg4, moe=dataclasses.replace(
             cfg4.moe, router_aux_weight=0.0))
     state = init_train_state(cfg4, tcfg, device="cuda")
+    if spec.get("gates"):
+        _set_gates(torch, state["params"])
     losses = {}
     for physical in (4, 2):
         rt4 = ElasticRuntime(cfg4, tcfg, world, physical, gb, seq,
@@ -927,6 +1018,12 @@ def phase_train(torch, card, counters, path=TRAIN_PATH):
     t0 = time.perf_counter()
     rt = ElasticRuntime(cfg, tcfg, world, TRAIN["physical"][0], gb, seq,
                         device="cuda")
+    if spec.get("gates"):
+        _set_gates(torch, rt.state["params"])
+        print(f"cross gates set to {rt.state['params']['cross']['gate']}"
+              f"; extra inputs "
+              f"{[(k, tuple(v.shape)) for k, v in rt.extra_inputs.items()]}",
+              flush=True)
     torch.cuda.synchronize()
     print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, vocab "
           f"{cfg.vocab_size}, compute {cfg.dtype}, f32 master weights and "
@@ -1047,6 +1144,7 @@ def phase_train_f32(path=TRAIN_PATH):
     from repro_torch.configs import get_smoke_config
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data import DataPipeline
+    from repro_torch.models.frontend import synth_extra_inputs
     from repro_torch.training import build_train_step, init_train_state
 
     spec = TRAIN_SPECS[path]
@@ -1056,14 +1154,17 @@ def phase_train_f32(path=TRAIN_PATH):
     cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     tcfg = TrainConfig(total_steps=40, warmup_steps=2, learning_rate=1e-3)
     cpu_state = init_train_state(cfg, tcfg, device="cpu")
+    _set_gates(torch, cpu_state["params"])
     card_state = train_state_from_jax(train_state_to_numpy(cpu_state), cfg,
                                       device="cuda")
     tokens, labels = DataPipeline(cfg.vocab_size, 128, 4, 4).next_batch()
+    extra = synth_extra_inputs(cfg, 4, 1)
     step = build_train_step(cfg, tcfg, splice=2)
     out = {}
     for device, state in (("cpu", cpu_state), ("cuda", card_state)):
         batch = {"tokens": torch.as_tensor(tokens, device=device).long(),
-                 "labels": torch.as_tensor(labels, device=device).long()}
+                 "labels": torch.as_tensor(labels, device=device).long(),
+                 **{k: v.to(device) for k, v in extra.items()}}
         new, metrics = step(state, batch)
         out[device] = (train_state_to_numpy(new), metrics["loss"].item(),
                        metrics["lr"].item())
@@ -1365,6 +1466,55 @@ def phase_fleet(torch, counters):
     return launches
 
 
+SIM_PATH = "fleet-sim"
+
+
+def phase_fleet_sim(counters):
+    """One seeded trace through the port's ``FleetSimulator`` (failures,
+    snapshots, the serving tier with loaning, concave curves; the trace of
+    ``tests/test_torch_simulator.py``, whose digest there equals the JAX
+    simulator's).  The simulator is numpy: the path launches no kernel (the
+    counts are set to 0 before and read after).  It shows the simulator
+    runs on the card's machine, which has no JAX.  Returns the counts."""
+    import importlib
+
+    from repro_torch.scheduler.scenarios import seeded_fleet_trace
+
+    print(f"\n== phase 11: {SIM_PATH}: a seeded fleet trace through the "
+          f"port's FleetSimulator", flush=True)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    digest, res, decisions = seeded_fleet_trace(
+        lambda m: importlib.import_module(f"repro_torch.{m}"))
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    again, _, _ = seeded_fleet_trace(
+        lambda m: importlib.import_module(f"repro_torch.{m}"))
+    print(f"decision digest {digest} over {decisions} decisions (again: "
+          f"{again}); wall {wall!r} s on the host; utilization "
+          f"{res.utilization!r}, completed {res.completed} of "
+          f"{res.total_jobs}, preemptions {res.preemptions}, migrations "
+          f"{res.migrations}, resizes {res.resizes}, job failures "
+          f"{res.job_failures}, snapshots {res.snapshots}, goodput "
+          f"{res.goodput_fraction!r}; serving: SLO attainment "
+          f"{res.serving_slo_attainment!r} over {res.serving_windows} "
+          f"windows, {res.serving_reclaims} reclaims (max "
+          f"{res.serving_reclaim_max_seconds!r} s, deadline "
+          f"{res.serving_reclaim_deadline_seconds!r} s), loaned "
+          f"{res.serving_loaned_gpu_hours!r} GPU-hours; launches {launches}",
+          flush=True)
+    if again != digest or any(launches.values()):
+        raise AssertionError("the trace is not deterministic, or launched "
+                             "a kernel")
+    if not (decisions > 100 and res.job_failures > 0
+            and res.serving_reclaims > 0 and res.serving_loaned_gpu_hours > 0
+            and res.serving_reclaims_over_deadline == 0):
+        raise AssertionError(f"the trace did not exercise failures and the "
+                             f"serving tier: {res}")
+    return launches
+
+
 def _copies(counters) -> dict:
     """The copies each wrapper has made of an operand its kernel's TMA
     cannot read in place (``swa_flash``, ``fused_ce_stats``)."""
@@ -1372,21 +1522,43 @@ def _copies(counters) -> dict:
             if hasattr(fn, "copies")}
 
 
+def _set_gates(torch, params, seed=0):
+    """The audio and VLM cross gates set to uniform [0.3, 0.9) from a
+    numpy seed (f32, in place): they are zero at init, where every cross
+    block adds nothing, so a check at init would not see the encoder, the
+    cross attention or the cross caches."""
+    if "cross" in params:
+        gate = params["cross"]["gate"]
+        gate.copy_(torch.from_numpy(np.random.default_rng(seed).uniform(
+            0.3, 0.9, gate.shape)))
+
+
 def phase_serve(torch, card, arch, expected, counters, tools):
     """One serving path at full width; returns its launch counts."""
     get_config, ServingEngine, prefill_fn, decode_step_fn = tools
+    from repro_torch.models.frontend import synth_extra_inputs
+
+    n_batch, n_prompt = SERVE_SHAPES.get(arch, (BATCH, PROMPT))
     print(f"\n== phase 3: {arch} at full width through ServingEngine",
           flush=True)
     cfg = get_config(arch)
     t0 = time.perf_counter()
     engine = ServingEngine(cfg, seed=0, device="cuda")
+    _set_gates(torch, engine.params)
     torch.cuda.synchronize()
     print(f"{cfg.name} [{cfg.arch_type}]: {cfg.num_layers} layers, d_model "
-          f"{cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype}: "
-          f"{cfg.param_count()} parameters, made in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, window "
+          f"{cfg.sliding_window}, {cfg.dtype}: {cfg.param_count()} "
+          f"parameters, made in {time.perf_counter() - t0:.2f} s", flush=True)
+    checked = DECODE_CHECK_STEPS.get(arch, 1)
     prompts = np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (BATCH, PROMPT + 1))
+        0, cfg.vocab_size, (n_batch, n_prompt + checked))
+    # the frame or patch embeddings generate() draws (its seed + 7)
+    extra = synth_extra_inputs(cfg, n_batch, 7, device="cuda")
+    if extra:
+        print(f"extra inputs {[(k, tuple(v.shape)) for k, v in extra.items()]}"
+              f"; cross gates {engine.params['cross']['gate'].tolist()}",
+              flush=True)
 
     # the main path: counts to 0 just before, read just after
     torch.cuda.reset_peak_memory_stats()
@@ -1394,12 +1566,12 @@ def phase_serve(torch, card, arch, expected, counters, tools):
         fn.launches = 0
     copies = _copies(counters)
     t0 = time.perf_counter()
-    out = engine.generate(prompts[:, :PROMPT], max_new_tokens=NEW_TOKENS)
+    out = engine.generate(prompts[:, :n_prompt], max_new_tokens=NEW_TOKENS)
     out = out.cpu()
     first_wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
     peak_bytes = torch.cuda.max_memory_allocated()
-    print(f"generate(batch {BATCH}, prompt {PROMPT}, {NEW_TOKENS} new, "
+    print(f"generate(batch {n_batch}, prompt {n_prompt}, {NEW_TOKENS} new, "
           f"greedy): launches {launches}, first call {first_wall:.3f} s",
           flush=True)
     if launches != expected:
@@ -1408,7 +1580,7 @@ def phase_serve(torch, card, arch, expected, counters, tools):
     if _copies(counters) != copies:
         raise AssertionError(f"the kernels' wrappers copied an operand on "
                              f"{arch}'s path: {copies} -> {_copies(counters)}")
-    if out.shape != (BATCH, NEW_TOKENS):
+    if out.shape != (n_batch, NEW_TOKENS):
         raise AssertionError(f"generated shape {tuple(out.shape)}")
     if not ((out >= 0) & (out < cfg.vocab_size)).all():
         raise AssertionError("generated token ids out of range")
@@ -1416,13 +1588,13 @@ def phase_serve(torch, card, arch, expected, counters, tools):
 
     with torch.inference_mode():
         tokens = torch.as_tensor(prompts, device="cuda")
-        batch = {"tokens": tokens[:, :PROMPT]}
+        batch = {"tokens": tokens[:, :n_prompt], **extra}
         prefill_ms = time_ms(
             torch, lambda: prefill_fn(engine.params, batch, cfg,
-                                      cache_len=PROMPT + NEW_TOKENS), 5, 1)
+                                      cache_len=n_prompt + NEW_TOKENS), 5, 1)
         logits, state = prefill_fn(engine.params, batch, cfg,
-                                   cache_len=PROMPT + NEW_TOKENS)
-        if logits.shape != (BATCH, cfg.vocab_size) or \
+                                   cache_len=n_prompt + NEW_TOKENS)
+        if logits.shape != (n_batch, cfg.vocab_size) or \
                 logits.dtype != torch.float32:
             raise AssertionError(f"logits {tuple(logits.shape)} {logits.dtype}")
         if not torch.isfinite(logits).all():
@@ -1432,22 +1604,23 @@ def phase_serve(torch, card, arch, expected, counters, tools):
         decode_ms = time_ms(
             torch, lambda: decode_step_fn(engine.params, state, tok, cfg),
             steps, 0)
-        _profile(torch, f"{arch} prefill (batch {BATCH} x {PROMPT})",
+        _profile(torch, f"{arch} prefill (batch {n_batch} x {n_prompt})",
                  lambda: prefill_fn(engine.params, batch, cfg,
-                                    cache_len=PROMPT + NEW_TOKENS))
-        _profile(torch, f"{arch} decode step (batch {BATCH})",
+                                    cache_len=n_prompt + NEW_TOKENS))
+        _profile(torch, f"{arch} decode step (batch {n_batch})",
                  lambda: decode_step_fn(engine.params, state, tok, cfg))
     t0 = time.perf_counter()
-    engine.generate(prompts[:, :PROMPT], max_new_tokens=NEW_TOKENS).cpu()
+    engine.generate(prompts[:, :n_prompt], max_new_tokens=NEW_TOKENS).cpu()
     warm_wall = time.perf_counter() - t0
-    print(f"[{card}] {arch}: prefill {prefill_ms!r} ms (batch {BATCH} x "
-          f"{PROMPT}); decode {decode_ms!r} ms/token step (batch {BATCH}), "
-          f"{BATCH * 1e3 / decode_ms!r} tokens/s; generate warm "
-          f"{warm_wall!r} s = {BATCH * NEW_TOKENS / warm_wall!r} new tokens/s;"
-          f" peak device memory {peak_bytes} bytes", flush=True)
+    print(f"[{card}] {arch}: prefill {prefill_ms!r} ms (batch {n_batch} x "
+          f"{n_prompt}); decode {decode_ms!r} ms/token step (batch "
+          f"{n_batch}), {n_batch * 1e3 / decode_ms!r} tokens/s; generate "
+          f"warm {warm_wall!r} s = {n_batch * NEW_TOKENS / warm_wall!r} new "
+          f"tokens/s; peak device memory {peak_bytes} bytes", flush=True)
 
-    # decode-vs-prefill at full width, bf16: prefill(s) + one decode step
-    # against prefill(s + 1) (MoE where nothing drops, ``_no_drops``).  The
+    # decode-vs-prefill at full width, bf16: prefill(s) + k decode steps
+    # against prefill(s + k) (k 1, or ``DECODE_CHECK_STEPS``; MoE where
+    # nothing drops, ``_no_drops``).  The
     # two paths round bf16 activations at other places through every
     # layer; that moved the largest of 4 x 50304 olmo-1b logits by 0.126 in
     # this script's first run (spread of the logits about 1).  A fault of structure (cache slot, mask, position,
@@ -1456,10 +1629,13 @@ def phase_serve(torch, card, arch, expected, counters, tools):
     # f32 one in phase 3b.
     with torch.inference_mode():
         dec, ref = _decode_vs_prefill(torch, engine.params, _no_drops(cfg),
-                                      tokens, prefill_fn, decode_step_fn)
+                                      tokens, prefill_fn, decode_step_fn,
+                                      extra, checked)
     diff = (dec - ref).abs()
-    err, bound = diff.max().item(), 0.25 * ref.std().item()
-    print(f"{arch} decode vs prefill, bf16, batch {BATCH}, prompt {PROMPT}: "
+    err = diff.max().item()
+    bound = DECODE_BF16_BOUND.get(arch, 0.25) * ref.std().item()
+    print(f"{arch} decode vs prefill, bf16, batch {n_batch}, prompt "
+          f"{n_prompt}, {checked} decode steps: "
           f"max |diff| {err!r}, mean |diff| {diff.mean().item()!r}, logits "
           f"std {ref.std().item()!r}, max |logit| "
           f"{ref.abs().max().item()!r}; bound {bound!r}", flush=True)
@@ -1517,12 +1693,18 @@ def _no_drops(cfg):
 
 
 def _decode_vs_prefill(torch, params, cfg, tokens, prefill_fn,
-                       decode_step_fn):
-    s = tokens.shape[1] - 1
-    _, state = prefill_fn(params, {"tokens": tokens[:, :s]}, cfg,
-                          cache_len=s + 1)
-    dec, _ = decode_step_fn(params, state, tokens[:, s], cfg)
-    ref, _ = prefill_fn(params, {"tokens": tokens}, cfg)
+                       decode_step_fn, extra=None, steps=None):
+    """The last logits of ``steps`` decode steps (default 1) over the last
+    tokens of ``tokens`` after a prefill of the others, against those of a
+    prefill of them all."""
+    extra = extra or {}
+    steps = steps or 1
+    s = tokens.shape[1] - steps
+    _, state = prefill_fn(params, {"tokens": tokens[:, :s], **extra}, cfg,
+                          cache_len=tokens.shape[1])
+    for i in range(steps):
+        dec, state = decode_step_fn(params, state, tokens[:, s + i], cfg)
+    ref, _ = prefill_fn(params, {"tokens": tokens, **extra}, cfg)
     return dec, ref
 
 
@@ -1535,21 +1717,32 @@ def phase_checks(torch, get_config, get_smoke_config, init_params,
     # bound, 2e-3; MoE where nothing drops); the SSM models on a prompt
     # of 256, two whole chunks, so that the decode step's prefill(257) has
     # a ragged third chunk
-    for arch, prompt in (("olmo-1b", 128), ("mamba2-130m", 256),
-                         ("zamba2-1.2b", 256), ("granite-moe-3b-a800m", 128)):
+    # h2o-danube-3-4b from a prompt of 4,160, past its window of 4,096, for
+    # 4 steps; whisper-base and llama-3.2-vision-11b (40.5 GB of f32
+    # weights) with their gates set and frame or patch embeddings
+    from repro_torch.models.frontend import synth_extra_inputs
+
+    for arch, prompt, steps in (
+            ("olmo-1b", 128, 1), ("mamba2-130m", 256, 1),
+            ("zamba2-1.2b", 256, 1), ("granite-moe-3b-a800m", 128, 1),
+            ("h2o-danube-3-4b", 4160, 4), ("whisper-base", 128, 1),
+            ("llama-3.2-vision-11b", 128, 1)):
         cfg = _no_drops(dataclasses.replace(get_config(arch),
                                             dtype="float32"))
         params = init_params(cfg, 0, device="cuda")
+        _set_gates(torch, params)
         tokens = torch.as_tensor(np.random.default_rng(2).integers(
-            0, cfg.vocab_size, (2, prompt + 1)), device="cuda")
+            0, cfg.vocab_size, (2, prompt + steps)), device="cuda")
+        extra = synth_extra_inputs(cfg, 2, 1, device="cuda")
         with torch.inference_mode():
             dec, ref = _decode_vs_prefill(torch, params, cfg, tokens,
-                                          prefill_fn, decode_step_fn)
+                                          prefill_fn, decode_step_fn, extra,
+                                          steps)
         torch.testing.assert_close(dec, ref, rtol=2e-3, atol=2e-3)
         print(f"{arch} decode vs prefill, f32, full width, batch 2, prompt "
-              f"{prompt}: max |diff| {(dec - ref).abs().max().item()!r} "
-              f"within 2e-3", flush=True)
-        del params
+              f"{prompt}, {steps} decode steps: max |diff| "
+              f"{(dec - ref).abs().max().item()!r} within 2e-3", flush=True)
+        del params, extra
         torch.cuda.empty_cache()
 
     # the card path (CUDA kernels) against the CPU path (plain versions) on
@@ -1577,6 +1770,52 @@ def phase_checks(torch, get_config, get_smoke_config, init_params,
         print(f"{arch} smoke config, f32: card vs CPU prefill logits max "
               f"|diff| {(got.cpu() - want).abs().max().item()!r} within 1e-4;"
               f" 8 greedy tokens equal", flush=True)
+
+    # the sliding window, audio and VLM families on their smoke configs at
+    # f32, gates set, the same weights and frame or patch embeddings on
+    # both devices: on the card, decode against prefill (h2o-danube from a
+    # prompt of 160, past its window of 128, for 40 steps that each write
+    # a ring slot over the oldest position); card against CPU, the prefill
+    # logits within 1e-4 and 8 greedy tokens equal
+    from repro_torch.models.frontend import synth_extra_inputs
+
+    for arch, prompt, steps in (("h2o-danube-3-4b", 160, 40),
+                                ("whisper-base", 48, 4),
+                                ("llama-3.2-vision-11b", 48, 4)):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        cpu_params = init_params(cfg, 0, device="cpu")
+        _set_gates(torch, cpu_params)
+        gpu_params = params_from_jax(params_to_numpy(cpu_params), cfg, "cuda")
+        tokens = np.random.default_rng(4).integers(0, cfg.vocab_size,
+                                                   (2, prompt + steps))
+        extra = synth_extra_inputs(cfg, 2, 1)
+        card_extra = {k: v.to("cuda") for k, v in extra.items()}
+        with torch.inference_mode():
+            dec, ref = _decode_vs_prefill(
+                torch, gpu_params, cfg, torch.as_tensor(tokens, device="cuda"),
+                prefill_fn, decode_step_fn, card_extra, steps)
+            torch.testing.assert_close(dec, ref, rtol=2e-3, atol=2e-3)
+            got, _ = prefill_fn(gpu_params, {"tokens": torch.as_tensor(
+                tokens[:, :prompt], device="cuda"), **card_extra}, cfg)
+            want, _ = prefill_fn(cpu_params, {"tokens": torch.as_tensor(
+                tokens[:, :prompt]), **extra}, cfg)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+        gen = {device: ServingEngine(cfg, params=params,
+                                     device=device).generate(
+            tokens[:, :prompt], max_new_tokens=8).cpu()
+            for device, params in (("cuda", gpu_params), ("cpu", cpu_params))}
+        if not torch.equal(gen["cuda"], gen["cpu"]):
+            raise AssertionError(f"{arch}: greedy tokens differ: card "
+                                 f"{gen['cuda'].tolist()} cpu "
+                                 f"{gen['cpu'].tolist()}")
+        gates = cpu_params["cross"]["gate"].tolist() \
+            if "cross" in cpu_params else None
+        print(f"{arch} smoke config, f32, gates {gates}: decode vs prefill on the card over {steps} steps from a "
+              f"prompt of {prompt} (window {cfg.sliding_window}): max |diff| "
+              f"{(dec - ref).abs().max().item()!r} within 2e-3; card vs CPU "
+              f"prefill logits max |diff| "
+              f"{(got.cpu() - want).abs().max().item()!r} within 1e-4; 8 "
+              f"greedy tokens equal", flush=True)
 
 
 def main() -> int:
@@ -1651,11 +1890,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_f32(SSM_TRAIN_PATH)
     by_path[FLEET_PATH] = phase_fleet(torch, counters)
-    for path in (HYBRID_TRAIN_PATH, MOE_TRAIN_PATH):
+    for path in (HYBRID_TRAIN_PATH, MOE_TRAIN_PATH, AUDIO_TRAIN_PATH):
         by_path[path], rt, _ = phase_train(torch, card, counters, path)
         del rt
         torch.cuda.empty_cache()
         phase_train_f32(path)
+    by_path[SIM_PATH] = phase_fleet_sim(counters)
 
     kernels = []
     for name, route, source, replaces, stats in (

@@ -23,8 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import check_ported
-from repro_torch.models.ssm import F32_LEAVES
+from repro_torch.models.model import F32_LEAVES, check_ported
 
 
 def _to_tensor(arr, device, dtype) -> torch.Tensor:
@@ -50,10 +49,10 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cpu",
     """The port's parameter tree from a JAX tree of numpy arrays.
 
     Values are copied bit for bit; ``dtype``, when given, casts every leaf
-    but the SSM's ``A_log``, ``D`` and ``dt_bias``, which JAX keeps and
-    uses in f32 (the port may store its weights once in the compute dtype,
-    where the JAX engine keeps f32 and casts at every use: the values used
-    are the same).
+    but the SSM's ``A_log``, ``D`` and ``dt_bias`` and the cross-attention
+    gates, which JAX keeps and uses in f32 (the port may store its weights
+    once in the compute dtype, where the JAX engine keeps f32 and casts at
+    every use: the values used are the same).
     """
     check_ported(cfg)
     embed = tree["embed"]

@@ -21,12 +21,14 @@ from __future__ import annotations
 import time
 from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.bridge import train_state_from_jax, train_state_to_numpy
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.barrier_step import BarrierDriver
 from repro_torch.data.pipeline import DataPipeline
+from repro_torch.models.frontend import synth_extra_inputs
 from repro_torch.optim.zero import validate_partial_sharding
 from repro_torch.training.state import TrainState, init_train_state
 from repro_torch.training.step import build_train_step
@@ -46,12 +48,21 @@ class ElasticRuntime:
     a job; otherwise the state is drawn from ``tcfg.seed``, as the JAX
     runtime draws it from ``PRNGKey(tcfg.seed)`` (``seed`` is kept for the
     JAX signature and, as there, unused).
+
+    The audio and VLM families take frame or patch embeddings beside the
+    tokens.  As the JAX runtime draws them once, from ``PRNGKey(tcfg.seed
+    + 1)``, and puts the same arrays in every batch, this one draws them
+    once from a generator seeded with ``tcfg.seed + 1`` (other values than
+    JAX's), unless the caller passes ``extra_inputs``, a dict of arrays
+    with the global batch as their leading axis (JAX's, for example).  The
+    step slices them with the tokens.
     """
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, world_size: int,
                  physical_devices: int, global_batch: int, seq_len: int,
                  seed: int = 0, state: Optional[TrainState] = None,
-                 pipeline_state: Optional[Dict] = None, *, device="cuda"):
+                 pipeline_state: Optional[Dict] = None, *, device="cuda",
+                 extra_inputs: Optional[Dict] = None):
         _check_divides(world_size, physical_devices)
         self.cfg = cfg
         self.tcfg = tcfg
@@ -67,6 +78,14 @@ class ElasticRuntime:
         self.state = state if state is not None else init_train_state(
             cfg, tcfg, tcfg.seed, device=self.device)
         self.barrier = BarrierDriver(n_shards=1)
+        if extra_inputs is None:
+            extra_inputs = synth_extra_inputs(cfg, global_batch,
+                                              tcfg.seed + 1,
+                                              device=self.device)
+        self.extra_inputs = {
+            key: (val if torch.is_tensor(val)
+                  else torch.from_numpy(np.array(val))).to(self.device)
+            for key, val in extra_inputs.items()}
         self._steps: Dict[int, Callable] = {}
         self.history: List[Dict] = []
         # time to build each splice factor's step (JAX: its jit compile)
@@ -101,7 +120,8 @@ class ElasticRuntime:
         return {"tokens": torch.as_tensor(tokens, dtype=torch.long,
                                           device=self.device),
                 "labels": torch.as_tensor(labels, dtype=torch.long,
-                                          device=self.device)}
+                                          device=self.device),
+                **self.extra_inputs}
 
     def run_steps(self, n: int, stop_on_barrier: bool = False) -> List[Dict]:
         """Run ``n`` steps; each record has the JAX runtime's keys plus the

@@ -17,10 +17,20 @@ port's ``ServingEngine`` (port of ``repro.launch.serve``).
         --arch granite-moe-3b-a800m --full
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --arch zamba2-1.2b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \\
+        --full --batch 4 --prompt-len 512 --decode-tokens 32
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch llama-3.2-vision-11b --full --prompt-len 512 --decode-tokens 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-3-4b \\
+        --full --batch 2 --prompt-len 6144 --decode-tokens 32
 
-``--arch`` takes a family the port serves: dense (olmo-1b and the other
-dense configs), moe (granite-moe-3b-a800m, qwen3-moe-30b-a3b), ssm
-(mamba2-130m) and hybrid (zamba2-1.2b).
+``--arch`` takes any family: dense (olmo-1b and the other dense configs;
+h2o-danube-3-4b serves past its 4,096-token window from a ring cache), moe
+(granite-moe-3b-a800m, qwen3-moe-30b-a3b), ssm (mamba2-130m), hybrid
+(zamba2-1.2b), audio (whisper-base) and VLM (llama-3.2-vision-11b).  The
+engine draws the audio frames or image embeddings itself, from the seed;
+their cross-attention gates are zero at init, so with fresh weights the
+cross blocks add nothing until trained.
 """
 
 from __future__ import annotations

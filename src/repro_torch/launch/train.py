@@ -12,11 +12,17 @@ mid-run resizes: the paper's §2 lifecycle as one command, on ``--device``
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
         --full --global-batch 4 --seq-len 4096 --steps 5 --resize 3:2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-base \\
+        --full --global-batch 4 --seq-len 4096 --steps 5 --resize 3:2
 
 Without ``--full`` it trains the reduced smoke config.  The port trains the
 families dense (olmo-1b and the other dense configs), moe
 (``--arch granite-moe-3b-a800m``, qwen3-moe-30b-a3b), ssm
-(``--arch mamba2-130m``) and hybrid (``--arch zamba2-1.2b``).
+(``--arch mamba2-130m``), hybrid (``--arch zamba2-1.2b``), audio
+(``--arch whisper-base``; the runtime draws the encoder frames once from
+the seed) and VLM (``--arch llama-3.2-vision-11b``, its image embeddings
+likewise; at full width its f32 weights and AdamW moments do not fit one
+80 GB card).
 ``--layers N`` cuts the depth (granite-moe-3b-a800m's 32 layers do not
 fit one 80 GB card with f32 weights and AdamW).  ``--ckpt-every N``
 takes a transparent checkpoint of every logical worker every N steps into

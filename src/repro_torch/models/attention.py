@@ -7,9 +7,12 @@ The prefill core is the hand-written kernel behind
 The one difference: the kernel scales in f32, as the Pallas ``swa_flash``
 does, where ``blockwise_attention`` scales q in the working dtype.  The two
 agree at f32 and differ by rounding at bf16.
-Decode attention stays plain torch, as it is plain jnp in JAX.  There is one
-device, so the JAX sharding constraints and mesh branches have no
-counterpart here.
+Cross attention (``kv``) and non-causal self-attention (the audio
+encoder) run ``full_attention``, a plain torch core: JAX routes them to
+``blockwise_attention(causal=False)``, plain jnp and not a Pallas kernel
+(the Pallas ``swa_flash`` is causal only).  Decode attention stays plain
+torch, as it is plain jnp in JAX.  There is one device, so the JAX
+sharding constraints and mesh branches have no counterpart here.
 """
 from __future__ import annotations
 
@@ -78,19 +81,48 @@ def self_attention_with_kv(params: Dict, x: torch.Tensor, *, num_heads: int,
     return _out_proj(o, params["wo"]), k, v
 
 
+def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                   ) -> torch.Tensor:
+    """Non-causal attention, every query over every key: JAX's
+    ``blockwise_attention(causal=False)`` in one block.
+
+    q: (B, Sq, H, D); k, v: (B, Skv, H, D) (kv already head-repeated).
+    As there, q is scaled in the working dtype, the scores are summed in
+    f32 from working-dtype operands (``preferred_element_type=f32``), the
+    unnormalised probabilities are cast to v's dtype for P·V, summed in
+    f32, and divided by their row sums.  Holds the (B, H, Sq, Skv) f32
+    scores.  Returns (B, Sq, H, D) in q's dtype.
+    """
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", (q * scale).float(), k.float())
+    s = s - s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    return (o / p.sum(dim=-1).transpose(1, 2)[..., None]).to(q.dtype)
+
+
 def attention_forward(params: Dict, x: torch.Tensor, *, num_heads: int,
                       num_kv_heads: int, rope_theta: float, window: int = 0,
                       kv=None, causal: bool = True) -> torch.Tensor:
-    """Full attention layer (projections + kernel core), causal self-attention.
+    """Full attention layer (projections + core).
 
-    Cross attention (``kv``) and non-causal attention belong to the
-    audio/VLM families, not yet ported (ROADMAP M7.4).
+    kv: optional cross-attention source (B, Skv, d_model); None = self-attn.
+    Causal self-attention runs the kernel core; cross attention and
+    ``causal=False`` run ``full_attention`` (no RoPE on cross attention).
     """
-    if kv is not None or not causal:
-        raise NotImplementedError(
-            "cross and non-causal attention are not ported yet (ROADMAP M7.4)")
-    return self_attention_with_kv(params, x, num_heads=num_heads,
-                                  rope_theta=rope_theta, window=window)[0]
+    if kv is None and causal:
+        return self_attention_with_kv(params, x, num_heads=num_heads,
+                                      rope_theta=rope_theta, window=window)[0]
+    src = x if kv is None else kv
+    q = _project(x, params["wq"])
+    k = _project(src, params["wk"])
+    v = _project(src, params["wv"])
+    if kv is None and rope_theta > 0:
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    o = full_attention(q, _repeat_kv(k, num_heads), _repeat_kv(v, num_heads))
+    return _out_proj(o, params["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -149,3 +181,25 @@ def decode_attention(params: Dict, x: torch.Tensor, cache: Dict, pos: int,
     p = torch.softmax(s, dim=-1).to(x.dtype)
     o = torch.einsum("bhst,bthk->bshk", p, vv)
     return _out_proj(o, params["wo"]), cache
+
+
+def init_cross_cache(params: Dict, kv_src: torch.Tensor, *,
+                     num_kv_heads: int) -> Dict:
+    """Precompute cross-attention K/V (B, Skv, KVH, hd) from encoder or
+    vision embeddings, in their dtype."""
+    return {"k": _project(kv_src, params["wk"]),
+            "v": _project(kv_src, params["wv"])}
+
+
+def decode_cross_attention(params: Dict, x: torch.Tensor, cross: Dict, *,
+                           num_heads: int) -> torch.Tensor:
+    """Cross attention for decode: full (non-causal) attention of the one
+    token over the cached cross K/V."""
+    q = _project(x, params["wq"])
+    kk = _repeat_kv(cross["k"].to(x.dtype), num_heads)
+    vv = _repeat_kv(cross["v"].to(x.dtype), num_heads)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bshk,bthk->bhst", (q * scale).float(), kk.float())
+    p = torch.softmax(s, dim=-1).to(x.dtype)
+    o = torch.einsum("bhst,bthk->bshk", p, vv)
+    return _out_proj(o, params["wo"])

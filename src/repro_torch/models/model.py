@@ -1,5 +1,5 @@
-"""Model assembly: serving and training for the dense, MoE, SSM and
-hybrid families (port of ``repro.models.model``).
+"""Model assembly: serving and training for the dense, MoE, SSM, hybrid,
+audio (encoder-decoder) and VLM families (port of ``repro.models.model``).
 
 - ``init_params``       — parameter tree, layers stacked on axis 0 as in JAX
 - ``model_forward``     — training forward -> (loss, metrics)
@@ -13,7 +13,13 @@ norm parameters.  Layers run as a Python loop over views of the stacked
 weights, where JAX scans; the hybrid family (zamba2) walks the same group
 layout as JAX's group scans: ``n_groups`` groups of ``attn_every`` Mamba2
 layers, each followed by the one shared attention block, then the tail
-layers.  The audio and VLM families raise (ROADMAP M7.4).
+layers; the VLM family (llama-3.2-vision) groups of ``cross_attn_every``
+dense layers, each followed by its gated cross-attention block over the
+projected image embeddings.  The audio family (whisper) runs its
+bidirectional encoder over the frame embeddings once, then decoder layers
+of self-attention, gated cross attention over the encoder's output and
+MLP.  The cross-attention gates are f32 scalars, zero at init, whatever
+the parameters' dtype.
 """
 from __future__ import annotations
 
@@ -33,17 +39,16 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import apply_norm, dense_init, norm_param
 from repro_torch.utils import torch_dtype
 
-PORTED = ("dense", "moe", "ssm", "hybrid")
-# the families still to port, with their ROADMAP item
-NOT_PORTED = "audio and vlm (ROADMAP M7.4)"
+PORTED = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
+# leaves kept in f32 whatever the parameters' dtype, as in JAX: the SSM's
+# A_log, D and dt_bias, and the cross-attention gates
+F32_LEAVES = ssm_lib.F32_LEAVES + ("gate",)
 
 
 def check_ported(cfg: ModelConfig) -> None:
     if cfg.arch_type not in PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: arch_type {cfg.arch_type!r} is not ported yet; "
-            f"the port serves the families {PORTED}, not yet "
-            f"{NOT_PORTED}")
+        raise ValueError(f"{cfg.name}: unknown arch_type {cfg.arch_type!r}; "
+                         f"the families are {PORTED}")
 
 
 # ---------------------------------------------------------------------------
@@ -79,6 +84,19 @@ def _init_ssm_block(cfg: ModelConfig, gen: torch.Generator, device,
         "ln1": norm_param(cfg.norm, cfg.d_model, device=device, dtype=dtype),
         "ssm": ssm_lib.init_ssm(gen, cfg.d_model, cfg.ssm, device=device,
                                 dtype=dtype),
+    }
+
+
+def _init_cross_block(cfg: ModelConfig, gen: torch.Generator, device,
+                      dtype) -> Dict:
+    hd = cfg.resolved_head_dim()
+    return {
+        "ln": norm_param(cfg.norm, cfg.d_model, device=device, dtype=dtype),
+        "attn": attn_lib.init_attention(gen, cfg.d_model, cfg.num_heads,
+                                        cfg.num_kv_heads, hd, device=device,
+                                        dtype=dtype),
+        # zero-init cross-attention gate, f32 whatever ``dtype``
+        "gate": torch.zeros((), device=device, dtype=torch.float32),
     }
 
 
@@ -124,22 +142,38 @@ def num_shared_attn(cfg: ModelConfig) -> int:
     return group_layout(cfg)[0] if cfg.arch_type == "hybrid" else 0
 
 
+def num_cross_layers(cfg: ModelConfig) -> int:
+    return group_layout(cfg)[0] if cfg.arch_type == "vlm" else 0
+
+
 def _layers(cfg: ModelConfig, params: Dict):
     """(kind, block, cache index) for each block in the order JAX's (group)
-    scans run them: ("attn", layer, i) for dense and MoE layer i (its
+    scans run them: ("attn", layer, i) for dense, MoE and VLM layer i (its
     feed-forward is the MLP or the expert layer); ("ssm", layer, i) for
     Mamba2 layer i; for hybrid, ("attn", shared block, g) after the layers
-    of group g, then the tail layers."""
+    of group g, then the tail layers; for VLM, ("cross", cross block g, g)
+    after the layers of group g; for audio, ("audio", (layer, its cross
+    block), i)."""
     blocks = _unstack(params["blocks"], cfg.num_layers)
     if cfg.arch_type in ("dense", "moe"):
         for i in range(cfg.num_layers):
             yield "attn", blocks[i], i
         return
+    if cfg.arch_type == "audio":
+        cross = _unstack(params["cross"], cfg.num_layers)
+        for i in range(cfg.num_layers):
+            yield "audio", (blocks[i], cross[i]), i
+        return
     n, per, _ = group_layout(cfg)
+    if cfg.arch_type == "vlm":
+        kind, after = "attn", [("cross", c)
+                               for c in _unstack(params["cross"], n)]
+    else:
+        kind, after = "ssm", [("attn", params.get("shared_attn"))] * n
     for g in range(n):
         for i in range(g * per, (g + 1) * per):
-            yield "ssm", blocks[i], i
-        yield "attn", params["shared_attn"], g
+            yield kind, blocks[i], i
+        yield (*after[g], g)
     for i in range(n * per, cfg.num_layers):
         yield "ssm", blocks[i], i
 
@@ -150,7 +184,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device,
 
     The same shapes, scales and tree as ``repro.models.init_params``; the
     values differ, since the two frameworks draw other random numbers.
-    ``A_log``, ``D`` and ``dt_bias`` stay f32 whatever ``dtype``, as in JAX.
+    ``F32_LEAVES`` stay f32 whatever ``dtype``, as in JAX.
     """
     check_ported(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -163,13 +197,28 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device,
     if not cfg.tie_embeddings:
         params["head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                     device=device, dtype=dtype)
-    block = {"dense": _init_attn_block, "moe": _init_moe_block}.get(
-        cfg.arch_type, _init_ssm_block)
-    params["blocks"] = _stack([block(cfg, gen, device, dtype)
-                               for _ in range(cfg.num_layers)])
+    block = {"moe": _init_moe_block, "ssm": _init_ssm_block,
+             "hybrid": _init_ssm_block}.get(cfg.arch_type, _init_attn_block)
+
+    def stack(fn, n):
+        return _stack([fn(cfg, gen, device, dtype) for _ in range(n)])
+
+    params["blocks"] = stack(block, cfg.num_layers)
     if cfg.arch_type == "hybrid":
         # zamba2: ONE shared attention block applied every attn_every layers
         params["shared_attn"] = _init_attn_block(cfg, gen, device, dtype)
+    if cfg.arch_type == "vlm":
+        params["cross"] = stack(_init_cross_block, num_cross_layers(cfg))
+        params["projector"] = dense_init(
+            gen, (cfg.vlm.image_embed_dim, cfg.d_model), device=device,
+            dtype=dtype)
+    if cfg.arch_type == "audio":
+        params["encoder"] = {
+            "blocks": stack(_init_attn_block, cfg.encdec.encoder_layers),
+            "final_norm": norm_param(cfg.norm, cfg.d_model, device=device,
+                                     dtype=dtype),
+        }
+        params["cross"] = stack(_init_cross_block, cfg.num_layers)
     return params
 
 
@@ -223,6 +272,77 @@ def _ssm_block(cfg: ModelConfig, block: Dict, x: torch.Tensor) -> torch.Tensor:
     return x + ssm_lib.ssm_forward(block["ssm"], h, cfg.ssm)
 
 
+def _cross_block(cfg: ModelConfig, cblock: Dict, x: torch.Tensor,
+                 kv_src: torch.Tensor) -> torch.Tensor:
+    """x + tanh(gate) * cross attention over ``kv_src`` (no RoPE; GQA
+    through ``_repeat_kv``)."""
+    h = apply_norm(cfg.norm, x, cblock["ln"])
+    h = attn_lib.attention_forward(
+        cblock["attn"], h, num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads, rope_theta=0.0, kv=kv_src,
+        causal=False)
+    return x + torch.tanh(cblock["gate"]).to(x.dtype) * h
+
+
+def _audio_block(cfg: ModelConfig, blocks, x: torch.Tensor,
+                 cross_src: torch.Tensor) -> torch.Tensor:
+    """A decoder layer of the audio family: causal self-attention (no
+    window), gated cross attention over the encoder's output, MLP.
+    ``blocks`` is (the layer, its cross block)."""
+    block, cross = blocks
+    h = apply_norm(cfg.norm, x, block["ln1"])
+    h = attn_lib.attention_forward(
+        block["attn"], h, num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads, rope_theta=cfg.rope_theta)
+    x = _cross_block(cfg, cross, x + h, cross_src)
+    return _mlp_res(cfg, block, x)
+
+
+def _vlm_group(cfg: ModelConfig, group, x: torch.Tensor,
+               cross_src: torch.Tensor) -> torch.Tensor:
+    """One group of the VLM family: its dense layers, then its cross block
+    over the projected image embeddings (JAX's ``group`` step of the VLM
+    scan).  ``group`` is (the group's layers, the cross block)."""
+    blocks, cross = group
+    for block in blocks:
+        x = _dense_block(cfg, block, x)
+    return _cross_block(cfg, cross, x, cross_src)
+
+
+def _encoder_forward(cfg: ModelConfig, params: Dict, frames: torch.Tensor
+                     ) -> torch.Tensor:
+    """Whisper-style bidirectional encoder over stub frame embeddings:
+    sinusoidal positions, non-causal blocks without RoPE, final norm."""
+    enc = params["encoder"]
+    pos = torch.arange(frames.shape[1], device=frames.device,
+                       dtype=torch.float32)
+    freqs = torch.exp(-torch.arange(0, cfg.d_model, 2, device=frames.device,
+                                    dtype=torch.float32)
+                      / cfg.d_model * 9.21)
+    ang = pos[:, None] * freqs[None, :]
+    x = frames + torch.cat([torch.sin(ang), torch.cos(ang)],
+                           dim=-1)[None].to(frames.dtype)
+    for block in _unstack(enc["blocks"], cfg.encdec.encoder_layers):
+        h = apply_norm(cfg.norm, x, block["ln1"])
+        h = attn_lib.attention_forward(
+            block["attn"], h, num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads, rope_theta=0.0, causal=False)
+        x = _mlp_res(cfg, block, x + h)
+    return apply_norm(cfg.norm, x, enc["final_norm"])
+
+
+def _cross_source(cfg: ModelConfig, params: Dict, batch: Dict,
+                  dtype: torch.dtype) -> Optional[torch.Tensor]:
+    """What the cross blocks attend to: the projected image embeddings
+    (vlm), the encoder's output over the frames (audio), else None."""
+    if cfg.arch_type == "vlm":
+        return batch["image_embeds"].to(dtype) @ params["projector"].to(dtype)
+    if cfg.arch_type == "audio":
+        return _encoder_forward(cfg, params,
+                                batch["encoder_frames"].to(dtype))
+    return None
+
+
 def _hybrid_group(cfg: ModelConfig, group, x: torch.Tensor) -> torch.Tensor:
     """One group of the hybrid family: its Mamba2 layers, then the shared
     attention block (JAX's ``group`` step of the hybrid scan).
@@ -271,8 +391,11 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int, *, device,
     - ``pos``: a Python int, so the host decides cache slots and masks
       without reading the device;
     - ``kv`` {"k", "v": (L, B, cache_len, KVH, hd)} in ``dtype`` for
-      dense and MoE, with one entry per shared-attention application
-      (n_groups) for hybrid;
+      dense, MoE, audio and VLM, with one entry per shared-attention
+      application (n_groups) for hybrid;
+    - ``cross_kv`` {"k", "v": (n, B, Skv, KVH, hd)} in ``dtype``: for VLM
+      one entry per cross block over the image tokens, for audio one per
+      decoder layer over the encoder frames;
     - ``ssm`` {"conv": (L, B, W-1, d_in+2N) in ``conv_dtype``, "ssm": (L, B,
       H, P, N) f32} for ssm and hybrid.  ``conv_dtype`` is f32 as in JAX's
       ``init_decode_state``; prefill passes the working dtype, which JAX's
@@ -280,19 +403,39 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int, *, device,
     """
     check_ported(cfg)
     state: Dict = {"pos": 0}
-    n_kv = {"dense": cfg.num_layers, "moe": cfg.num_layers,
-            "hybrid": num_shared_attn(cfg)}.get(cfg.arch_type)
+    n_kv = {"ssm": None,
+            "hybrid": num_shared_attn(cfg)}.get(cfg.arch_type, cfg.num_layers)
+
+    def zeros_kv(n, length):
+        shape = (n, batch, length, cfg.num_kv_heads, cfg.resolved_head_dim())
+        return {"k": torch.zeros(shape, device=device, dtype=dtype),
+                "v": torch.zeros(shape, device=device, dtype=dtype)}
+
     if n_kv is not None:
-        shape = (n_kv, batch, cache_length(cfg, seq_len), cfg.num_kv_heads,
-                 cfg.resolved_head_dim())
-        state["kv"] = {"k": torch.zeros(shape, device=device, dtype=dtype),
-                       "v": torch.zeros(shape, device=device, dtype=dtype)}
+        state["kv"] = zeros_kv(n_kv, cache_length(cfg, seq_len))
     if cfg.arch_type in ("ssm", "hybrid"):
         per = ssm_lib.init_ssm_state(batch, cfg.d_model, cfg.ssm,
                                      device=device, dtype=conv_dtype)
         state["ssm"] = {key: val.new_zeros((cfg.num_layers, *val.shape))
                         for key, val in per.items()}
+    if cfg.arch_type == "vlm":
+        state["cross_kv"] = zeros_kv(num_cross_layers(cfg),
+                                     cfg.vlm.num_image_tokens)
+    if cfg.arch_type == "audio":
+        state["cross_kv"] = zeros_kv(cfg.num_layers, cfg.encdec.encoder_seq)
     return state
+
+
+def _self_attn_decode(cfg: ModelConfig, block: Dict, x: torch.Tensor,
+                      kv: Dict, i: int, pos: int) -> torch.Tensor:
+    """x + the attention of block ``block`` on one token with KV cache
+    entry ``i``, written in place."""
+    h = apply_norm(cfg.norm, x, block["ln1"])
+    h, _ = attn_lib.decode_attention(
+        block["attn"], h, {"k": kv["k"][i], "v": kv["v"][i]}, pos,
+        num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+        rope_theta=cfg.rope_theta, window=cfg.sliding_window)
+    return x + h
 
 
 def _attn_decode(cfg: ModelConfig, block: Dict, x: torch.Tensor, kv: Dict,
@@ -300,12 +443,20 @@ def _attn_decode(cfg: ModelConfig, block: Dict, x: torch.Tensor, kv: Dict,
     """Attention block ``block`` on one token with KV cache entry ``i``,
     written in place; then its feed-forward.  The MoE layer routes the
     step's B tokens with their own capacity, as JAX's decode does."""
-    h = apply_norm(cfg.norm, x, block["ln1"])
-    h, _ = attn_lib.decode_attention(
-        block["attn"], h, {"k": kv["k"][i], "v": kv["v"][i]}, pos,
-        num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-        rope_theta=cfg.rope_theta, window=cfg.sliding_window)
-    return _ffn_res(cfg, block, x + h)
+    return _ffn_res(cfg, block, _self_attn_decode(cfg, block, x, kv, i, pos))
+
+
+def _cross_decode(cfg: ModelConfig, cblock: Dict, x: torch.Tensor,
+                  cross_kv: Dict, i: int) -> torch.Tensor:
+    """x + tanh(gate) * the cross attention of one token over entry ``i``
+    of the cached cross K/V."""
+    h = apply_norm(cfg.norm, x, cblock["ln"])
+    dtype = x.dtype
+    h = attn_lib.decode_cross_attention(
+        cblock["attn"], h, {"k": cross_kv["k"][i].to(dtype),
+                            "v": cross_kv["v"][i].to(dtype)},
+        num_heads=cfg.num_heads)
+    return x + torch.tanh(cblock["gate"]).to(dtype) * h
 
 
 def _ssm_decode(cfg: ModelConfig, block: Dict, x: torch.Tensor, sstate: Dict,
@@ -335,6 +486,13 @@ def decode_step_fn(params: Dict, state: Dict, token: torch.Tensor,
     for kind, block, i in _layers(cfg, params):
         if kind == "ssm":
             x = _ssm_decode(cfg, block, x, state["ssm"], i)
+        elif kind == "cross":
+            x = _cross_decode(cfg, block, x, state["cross_kv"], i)
+        elif kind == "audio":
+            layer, cross = block
+            x = _self_attn_decode(cfg, layer, x, state["kv"], i, pos)
+            x = _cross_decode(cfg, cross, x, state["cross_kv"], i)
+            x = _mlp_res(cfg, layer, x)
         else:
             x = _attn_decode(cfg, block, x, state["kv"], i, pos)
     x = apply_norm(cfg.norm, x, params["final_norm"])
@@ -364,16 +522,35 @@ def _fill_cache(cfg: ModelConfig, cache_k: torch.Tensor, cache_v: torch.Tensor,
         cache_v[:, :s] = v
 
 
-def _attn_prefill(cfg: ModelConfig, block: Dict, x: torch.Tensor, kv: Dict,
-                  i: int) -> torch.Tensor:
-    """Attention block over the prompt, filling KV cache entry ``i``; then
-    its feed-forward."""
+def _self_attn_prefill(cfg: ModelConfig, block: Dict, x: torch.Tensor,
+                       kv: Dict, i: int) -> torch.Tensor:
+    """x + the attention of block ``block`` over the prompt, filling KV
+    cache entry ``i``."""
     hn = apply_norm(cfg.norm, x, block["ln1"])
     h, k, v = attn_lib.self_attention_with_kv(
         block["attn"], hn, num_heads=cfg.num_heads,
         rope_theta=cfg.rope_theta, window=cfg.sliding_window)
     _fill_cache(cfg, kv["k"][i], kv["v"][i], k, v)
-    return _ffn_res(cfg, block, x + h)
+    return x + h
+
+
+def _attn_prefill(cfg: ModelConfig, block: Dict, x: torch.Tensor, kv: Dict,
+                  i: int) -> torch.Tensor:
+    """Attention block over the prompt, filling KV cache entry ``i``; then
+    its feed-forward."""
+    return _ffn_res(cfg, block, _self_attn_prefill(cfg, block, x, kv, i))
+
+
+def _cross_prefill(cfg: ModelConfig, cblock: Dict, x: torch.Tensor,
+                   cross_src: torch.Tensor, cross_kv: Dict, i: int
+                   ) -> torch.Tensor:
+    """The cross block over the prompt; its K/V over ``cross_src`` go into
+    entry ``i`` of the cross cache."""
+    ck = attn_lib.init_cross_cache(cblock["attn"], cross_src,
+                                   num_kv_heads=cfg.num_kv_heads)
+    cross_kv["k"][i] = ck["k"]
+    cross_kv["v"][i] = ck["v"]
+    return _cross_block(cfg, cblock, x, cross_src)
 
 
 def _ssm_prefill_layer(cfg: ModelConfig, block: Dict, x: torch.Tensor,
@@ -395,7 +572,8 @@ def prefill_fn(params: Dict, batch: Dict, cfg: ModelConfig,
     ``cache_len`` sizes the decode cache (>= prompt length) so generation
     has headroom; default = prompt length.  The k/v each layer's attention
     projects are written into the cache as they are, where JAX projects
-    them a second time; the cache comes out the same.
+    them a second time; the cache comes out the same.  ``batch`` holds
+    ``image_embeds`` (vlm) or ``encoder_frames`` (audio) beside the tokens.
     """
     check_ported(cfg)
     tokens = batch["tokens"]
@@ -408,9 +586,17 @@ def prefill_fn(params: Dict, batch: Dict, cfg: ModelConfig,
     state = init_decode_state(cfg, b, target_len, device=x.device, dtype=dtype,
                               conv_dtype=dtype)
     state["pos"] = s
+    cross_src = _cross_source(cfg, params, batch, dtype)
     for kind, block, i in _layers(cfg, params):
         if kind == "ssm":
             x = _ssm_prefill_layer(cfg, block, x, state["ssm"], i)
+        elif kind == "cross":
+            x = _cross_prefill(cfg, block, x, cross_src, state["cross_kv"], i)
+        elif kind == "audio":
+            layer, cross = block
+            x = _self_attn_prefill(cfg, layer, x, state["kv"], i)
+            x = _cross_prefill(cfg, cross, x, cross_src, state["cross_kv"], i)
+            x = _mlp_res(cfg, layer, x)
         else:
             x = _attn_prefill(cfg, block, x, state["kv"], i)
     x = apply_norm(cfg.norm, x, params["final_norm"])
@@ -439,10 +625,12 @@ def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
                                labels.reshape(-1))
 
 
-# each family's unit of the training forward: a layer, or for hybrid a
-# group of layers and the shared block (``_train_units``)
+# each family's unit of the training forward: a layer, for hybrid a group
+# of layers and the shared block, for audio a decoder layer and its cross
+# block, for vlm a group of layers and its cross block (``_train_units``)
 TRAINED = {"dense": _dense_block, "moe": _moe_block, "ssm": _ssm_block,
-           "hybrid": _hybrid_group}
+           "hybrid": _hybrid_group, "audio": _audio_block,
+           "vlm": _vlm_group}
 
 # the products JAX's ``dots_saveable`` keeps: matmuls (einsum and matmul
 # reach these in ATen)
@@ -458,10 +646,8 @@ def _save_dots(_ctx, op, *_args, **_kwargs) -> CheckpointPolicy:
 
 def check_trainable(cfg: ModelConfig) -> None:
     if cfg.arch_type not in TRAINED:
-        raise NotImplementedError(
-            f"{cfg.name}: training arch_type {cfg.arch_type!r} is not ported "
-            f"yet; the port trains the families {tuple(TRAINED)}, not yet "
-            f"{NOT_PORTED}")
+        raise ValueError(f"{cfg.name}: unknown arch_type {cfg.arch_type!r}; "
+                         f"the port trains the families {tuple(TRAINED)}")
 
 
 def _remat_wrapper(remat: bool, policy: str = "full"):
@@ -483,14 +669,26 @@ def _remat_wrapper(remat: bool, policy: str = "full"):
 def _train_units(cfg: ModelConfig, params: Dict):
     """The units the training forward runs in turn, each under one
     checkpoint with remat, as JAX checkpoints each step of its scans: one
-    per layer, or for hybrid one per group (its ``attn_every`` Mamba2
-    layers and the shared block, whose weights so get the sum of the
-    gradients of their applications), then one per tail layer.  Returns
+    per layer; for audio one per decoder layer with its cross block; for
+    hybrid one per group (its ``attn_every`` Mamba2 layers and the shared
+    block, whose weights so get the sum of the gradients of their
+    applications), then one per tail layer; for vlm one per group (its
+    ``cross_attn_every`` layers and its cross block).  Returns
     [(function, block)]."""
     blocks = _unstack(params["blocks"], cfg.num_layers)
-    if cfg.arch_type != "hybrid":
+    if cfg.arch_type == "audio":
+        cross = _unstack(params["cross"], cfg.num_layers)
+        return [(_audio_block, pair) for pair in zip(blocks, cross)]
+    if cfg.arch_type not in ("hybrid", "vlm"):
         return [(TRAINED[cfg.arch_type], block) for block in blocks]
-    n, per, _ = group_layout(cfg)
+    n, per, tail = group_layout(cfg)
+    if cfg.arch_type == "vlm":
+        if tail:
+            raise ValueError(f"{cfg.name}: vlm layers must divide "
+                             f"cross_attn_every")
+        cross = _unstack(params["cross"], n)
+        return [(_vlm_group, (blocks[g * per:(g + 1) * per], cross[g]))
+                for g in range(n)]
     groups = [(_hybrid_group, (blocks[g * per:(g + 1) * per],
                                params["shared_attn"])) for g in range(n)]
     return groups + [(_ssm_block, block) for block in blocks[n * per:]]
@@ -499,23 +697,29 @@ def _train_units(cfg: ModelConfig, params: Dict):
 def model_forward(params: Dict, batch: Dict, cfg: ModelConfig,
                   remat: bool = True, remat_policy: str = "full"
                   ) -> Tuple[torch.Tensor, Dict]:
-    """Training forward.  batch: tokens (B, S) and labels (B, S) (< 0 =
-    ignore).  Returns (mean loss, metrics dict).
+    """Training forward.  batch: tokens (B, S), labels (B, S) (< 0 =
+    ignore) and, per family, image_embeds (B, N, image width) [vlm] or
+    encoder_frames (B, F, d_model) [audio].  Returns (mean loss, metrics
+    dict).
 
     The layers run as JAX's ``_scan_blocks`` runs them (``_train_units``),
-    each unit under ``_remat_wrapper(remat, remat_policy)``.  The loss is
-    the mean CE plus the MoE layers' summed aux losses (zero for the
-    other families).
+    each unit under ``_remat_wrapper(remat, remat_policy)``; the audio
+    encoder (or the VLM projector) runs once before them, outside any
+    checkpoint, as in JAX.  The loss is the mean CE plus the MoE layers'
+    summed aux losses (zero for the other families).
     """
     check_trainable(cfg)
     run = _remat_wrapper(remat, remat_policy)
     dtype = torch_dtype(cfg.dtype)
     x = params["embed"].to(dtype)[batch["tokens"]]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    cross_src = _cross_source(cfg, params, batch, dtype)
     for fn, block in _train_units(cfg, params):
         if cfg.arch_type == "moe":
             x, layer_aux = run(fn, cfg, block, x)
             aux = aux + layer_aux
+        elif cross_src is not None:
+            x = run(fn, cfg, block, x, cross_src)
         else:
             x = run(fn, cfg, block, x)
     x = apply_norm(cfg.norm, x, params["final_norm"])

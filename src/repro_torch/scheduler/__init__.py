@@ -3,15 +3,17 @@
 - the numpy scheduler core, copies of the JAX package's modules
   (``curves``, ``costs``, ``types``, ``reliability``, ``telemetry``,
   ``job_table``, ``node_map``, ``policy``);
+- the fleet simulator and the elastic serving tier (``simulator``,
+  ``serving``), copies too; ``serving`` reads ``ReplicaProfile`` from the
+  analytic half of ``repro_torch.serving.engine``;
 - ``executor`` — the scheduler driving real jobs of the port's
   ``ElasticRuntime`` on a card (``FleetExecutor``, ``ManagedJob``);
 - ``scenarios`` — the executor's three reference scenarios, for either
   executor's classes.
 
-The fleet simulator and the serving tier (``simulator``, ``serving``) are
-not ported yet (ROADMAP M11).  Names resolve lazily (PEP 562): the numpy
-core imports without torch's model code, and ``executor`` is loaded only
-when asked for.
+Names resolve lazily (PEP 562): the numpy core, the simulator and the
+serving tier import without torch's model code, and ``executor`` is
+loaded only when asked for.
 """
 import importlib
 
@@ -35,6 +37,13 @@ _LAZY = {
     "Fleet": "types",
     "Job": "types",
     "Region": "types",
+    "ServiceSpec": "serving",
+    "ServingConfig": "serving",
+    "ServingTier": "serving",
+    "TrafficConfig": "serving",
+    "TrafficTrace": "serving",
+    "FleetSimulator": "simulator",
+    "SimConfig": "simulator",
 }
 
 

@@ -29,8 +29,6 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import decode_step_fn, init_params, prefill_fn
-from repro_torch.models.frontend import synth_extra_inputs
 from repro_torch.utils import constants, resolve_device, torch_dtype
 
 BYTES_PER_PARAM = 2  # bf16 weights and KV cache
@@ -201,15 +199,28 @@ class ServingEngine:
     ``params``, when given, is a tree of tensors on ``device`` (see
     ``bridge.params_from_jax``); else weights are drawn from ``seed``
     directly in the config's compute dtype, which holds the values the JAX
-    engine's f32 weights take at each use.
+    engine's f32 weights take at each use.  The audio and VLM families'
+    frame/patch embeddings are drawn from ``seed + 7``, as the JAX engine's
+    are (with torch's generator, so not the same values).  The model code
+    is imported here, not with the module, so that the analytic half above
+    (and the scheduler's serving tier, which reads ``ReplicaProfile``)
+    loads without it.
     """
 
     def __init__(self, cfg: ModelConfig, seed: int = 0,
                  params: Optional[dict] = None, device="cuda"):
+        from repro_torch.models import (
+            decode_step_fn, init_params, prefill_fn)
+        from repro_torch.models.frontend import synth_extra_inputs
+
+        self._prefill_fn = prefill_fn
+        self._decode_step_fn = decode_step_fn
+        self._synth_extra_inputs = synth_extra_inputs
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params if params is not None else init_params(
             cfg, seed, device=self.device, dtype=torch_dtype(cfg.dtype))
+        self._extra_seed = seed + 7
 
     @torch.inference_mode()
     def generate(self, prompts, max_new_tokens: int, temperature: float = 0.0,
@@ -217,14 +228,18 @@ class ServingEngine:
         """prompts: (B, S) ints -> generated (B, max_new_tokens) int32."""
         prompts = torch.as_tensor(prompts, device=self.device)
         batch = {"tokens": prompts,
-                 **synth_extra_inputs(self.cfg, prompts.shape[0])}
-        logits, state = prefill_fn(self.params, batch, self.cfg,
-                                   cache_len=prompts.shape[1] + max_new_tokens)
+                 **self._synth_extra_inputs(self.cfg, prompts.shape[0],
+                                            self._extra_seed,
+                                            device=self.device)}
+        logits, state = self._prefill_fn(
+            self.params, batch, self.cfg,
+            cache_len=prompts.shape[1] + max_new_tokens)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         tok = self._sample(logits, temperature, gen)
         out = [tok]
         for _ in range(max_new_tokens - 1):
-            logits, state = decode_step_fn(self.params, state, tok, self.cfg)
+            logits, state = self._decode_step_fn(self.params, state, tok,
+                                                 self.cfg)
             tok = self._sample(logits, temperature, gen)
             out.append(tok)
         return torch.stack(out, dim=1)

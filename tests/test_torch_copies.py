@@ -21,7 +21,7 @@ COPIES = ([f"configs/{name}" for name in CONFIGS]
               "validation")]
           + [f"scheduler/{name}.py" for name in (
               "curves", "costs", "types", "reliability", "telemetry",
-              "job_table", "node_map", "policy")])
+              "job_table", "node_map", "policy", "simulator", "serving")])
 
 
 class _Normalise(ast.NodeTransformer):

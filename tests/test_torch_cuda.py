@@ -31,6 +31,7 @@ from repro_torch.kernels.ssd_scan.ssd import ssd_intra_chunk
 from repro_torch.kernels.swa_attention import swa_attention
 from repro_torch.kernels.swa_attention.ref import swa_attention_ref
 from repro_torch.kernels.swa_attention.swa import swa_flash
+from repro_torch.models.frontend import synth_extra_inputs
 from repro_torch.training import build_train_step, init_train_state
 
 
@@ -70,6 +71,15 @@ def _card():
     (1, 100, 2, 8, 0, torch.bfloat16, 2 ** -7),
     # the fleet executor's olmo-1b smoke jobs
     (8, 32, 4, 64, 0, torch.bfloat16, 2 ** -7),
+    # h2o-danube-3-4b's prefill past its window (32 heads of 120, window
+    # 4096 < S 6144: both ends of each row masked), llama-3.2-vision-11b's
+    # prefill (32 heads of 128, the 8 KV heads repeated), whisper-base's
+    # prefill (8 heads of 64) and its training slices at splice 1 and 2
+    (2, 6144, 32, 120, 4096, torch.bfloat16, 2 ** -7),
+    (4, 512, 32, 128, 0, torch.bfloat16, 2 ** -7),
+    (4, 512, 8, 64, 0, torch.bfloat16, 2 ** -7),
+    (4, 4096, 8, 64, 0, torch.bfloat16, 2 ** -7),
+    (2, 4096, 8, 64, 0, torch.bfloat16, 2 ** -7),
 ])
 def test_swa_flash_matches_plain_on_card(b, s, h, d, w, dtype, tol):
     dev = _card()
@@ -276,6 +286,10 @@ def _ce_inputs(dev, t, d, v, dtype, seed=0, tied=True):
     # granite-moe-3b-a800m's (1536, 49155), copied for TMA
     (16384, 2048, 32000, torch.bfloat16, False),
     (16384, 1536, 49155, torch.bfloat16, False),
+    # whisper-base's untied (512, 51865) head, copied for TMA, at splice 1
+    # and 2
+    (16384, 512, 51865, torch.bfloat16, False),
+    (8192, 512, 51865, torch.bfloat16, False),
 ])
 def test_fused_ce_stats_matches_plain_on_card(t, d, v, dtype, tied):
     """lse and pick within 1e-4 of the plain version: both sum the same
@@ -489,30 +503,39 @@ def test_mamba2_smoke_train_step_card_matches_cpu():
     # a tail layer; under remat each layer's kernel runs twice
     ("zamba2-1.2b", 5, {"ssd_intra_chunk": 10, "swa_flash": 4}),
     ("granite-moe-3b-a800m", 2, {"ssd_intra_chunk": 0, "swa_flash": 4}),
+    # whisper-base: 2 decoder layers (the encoder and the cross blocks run
+    # the plain core); llama-3.2-vision-11b: two groups of 2 layers
+    ("whisper-base", 2, {"ssd_intra_chunk": 0, "swa_flash": 4}),
+    ("llama-3.2-vision-11b", 4, {"ssd_intra_chunk": 0, "swa_flash": 8}),
 ])
 def test_new_family_smoke_train_step_card_matches_cpu(arch, layers,
                                                       per_slice):
-    """One spliced step (splice 2) of the hybrid and MoE smoke configs at
-    f32 from one state on the card and on the CPU, held as the mamba2 one
-    above: loss and grad_norm at 1e-5, m and v at 1e-5 of each leaf's
-    largest entry, params at 1e-3 lr where the two sides' gradients agree
-    to 1e-3 relative and 0.2 lr on the rest (under 5% of each leaf).  The
-    kernels launch per slice as counted in ``per_slice``."""
+    """One spliced step (splice 2) of the hybrid, MoE, audio and VLM smoke
+    configs at f32 from one state on the card and on the CPU, held as the
+    mamba2 one above: loss and grad_norm at 1e-5, m and v at 1e-5 of each
+    leaf's largest entry, params at 1e-3 lr where the two sides' gradients
+    agree to 1e-3 relative and 0.2 lr on the rest (under 5% of each leaf).
+    The kernels launch per slice as counted in ``per_slice``.  The audio
+    and VLM cross gates are set nonzero, and both sides get the same frame
+    or patch embeddings."""
     dev = _card()
     cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
                               num_layers=layers)
     tcfg = TrainConfig(total_steps=40, warmup_steps=2, learning_rate=1e-3)
     cpu_state = init_train_state(cfg, tcfg, device="cpu")
+    _set_gates(cpu_state["params"])
     card_state = train_state_from_jax(train_state_to_numpy(cpu_state), cfg,
                                       device=dev)
     tokens, labels = DataPipeline(cfg.vocab_size, 96, 4, 4).next_batch()
+    extra = synth_extra_inputs(cfg, 4, 1)
     step = build_train_step(cfg, tcfg, splice=2)
     counters = {"ssd_intra_chunk": ssd_intra_chunk, "swa_flash": swa_flash}
     out = {}
     for name, state, device in (("cpu", cpu_state, "cpu"),
                                 ("card", card_state, dev)):
         batch = {"tokens": torch.as_tensor(tokens, device=device).long(),
-                 "labels": torch.as_tensor(labels, device=device).long()}
+                 "labels": torch.as_tensor(labels, device=device).long(),
+                 **{k: v.to(device) for k, v in extra.items()}}
         before = {key: fn.launches for key, fn in counters.items()}
         new, metrics = step(state, batch)
         launched = {key: fn.launches - before[key]
@@ -545,6 +568,68 @@ def test_new_family_smoke_train_step_card_matches_cpu(arch, layers,
         assert 1 - firm.mean() < 0.05
         np.testing.assert_allclose(a[firm], b[firm], rtol=0, atol=1e-3 * lr)
         np.testing.assert_allclose(a[~firm], b[~firm], rtol=0, atol=0.2 * lr)
+
+
+def _set_gates(params, seed=0):
+    """The cross gates (audio, VLM) set to uniform [0.3, 0.9): at zero, a
+    cross block adds nothing."""
+    if "cross" in params:
+        gate = params["cross"]["gate"]
+        gate.copy_(torch.from_numpy(np.random.default_rng(seed).uniform(
+            0.3, 0.9, gate.shape)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,prompt,swa_per_prefill", [
+    ("h2o-danube-3-4b", 160, 2),     # past its smoke window of 128
+    ("whisper-base", 48, 2),
+    ("llama-3.2-vision-11b", 48, 2),
+])
+def test_new_family_smoke_prefill_card_matches_cpu(arch, prompt,
+                                                   swa_per_prefill):
+    """The smoke config at f32, gates set, the same weights and frame or
+    patch embeddings on both devices: the card's prefill logits, KV and
+    cross caches within 1e-4 of the CPU's (the kernel against the plain
+    version), ``swa_flash`` launched once per layer, and 8 greedy tokens
+    equal, decoded past the window for h2o-danube."""
+    dev = _card()
+    from repro_torch.bridge import params_from_jax, params_to_numpy
+    from repro_torch.models import decode_step_fn, init_params, prefill_fn
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    cpu_params = init_params(cfg, 0, device="cpu")
+    _set_gates(cpu_params)
+    card_params = params_from_jax(params_to_numpy(cpu_params), cfg, dev)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, prompt)))
+    extra = synth_extra_inputs(cfg, 2, 1)
+    out = {}
+    for device, params in (("cpu", cpu_params), (dev, card_params)):
+        batch = {"tokens": tokens.to(device),
+                 **{k: v.to(device) for k, v in extra.items()}}
+        before = swa_flash.launches
+        with torch.inference_mode():
+            logits, state = prefill_fn(params, batch, cfg,
+                                       cache_len=prompt + 8)
+            launched = swa_flash.launches - before
+            toks = [logits.argmax(-1)]
+            for _ in range(7):
+                step_logits, state = decode_step_fn(params, state, toks[-1],
+                                                    cfg)
+                toks.append(step_logits.argmax(-1))
+        out[str(device)] = (logits.cpu(), state, torch.stack(toks, 1).cpu(),
+                            launched)
+    (cpu_l, cpu_s, cpu_t, cpu_n), (card_l, card_s, card_t, card_n) = \
+        out["cpu"], out[str(dev)]
+    assert (cpu_n, card_n) == (0, swa_per_prefill)
+    torch.testing.assert_close(card_l, cpu_l, rtol=1e-4, atol=1e-4)
+    for key in ("kv", "cross_kv"):
+        for name in ("k", "v"):
+            if key in cpu_s:
+                torch.testing.assert_close(card_s[key][name].cpu(),
+                                           cpu_s[key][name], rtol=1e-4,
+                                           atol=1e-4)
+    assert torch.equal(card_t, cpu_t)
 
 
 @pytest.mark.cuda

@@ -98,13 +98,25 @@ def test_attention_forward_matches_jax(h, kvh, window):
 
 
 def test_attention_forward_raises_off_the_slice():
-    p = {k: torch.zeros(1) for k in ("wq", "wk", "wv", "wo")}
-    x = torch.zeros(1, 2, 8)
-    kw = dict(num_heads=1, num_kv_heads=1, rope_theta=0.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt_attn.attention_forward(p, x, kv=x, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt_attn.attention_forward(p, x, causal=False, **kw)
+    """What was off the slice until the audio and VLM families came is on
+    it: cross attention (``kv=``, ragged Skv, GQA, no RoPE) and
+    non-causal self-attention (RoPE on) run the plain core and agree with
+    JAX's layer."""
+    rng = np.random.default_rng(9)
+    d, h, kvh, hd = 64, 4, 2, 16
+    pt_p, jx_p = _both(_attn_params(rng, d, h, kvh, hd))
+    x, src = _rand(rng, 2, 11, d), _rand(rng, 2, 29, d)
+    kw = dict(num_heads=h, num_kv_heads=kvh, rope_theta=10000.0)
+    _close(pt_attn.attention_forward(pt_p, torch.from_numpy(x),
+                                     kv=torch.from_numpy(src), causal=False,
+                                     **kw),
+           jax_attn.attention_forward(jx_p, jnp.asarray(x),
+                                      kv=jnp.asarray(src), causal=False,
+                                      **kw))
+    _close(pt_attn.attention_forward(pt_p, torch.from_numpy(x),
+                                     causal=False, **kw),
+           jax_attn.attention_forward(jx_p, jnp.asarray(x), causal=False,
+                                      **kw))
 
 
 @pytest.mark.parametrize("window,cache_len,pos", [

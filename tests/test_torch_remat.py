@@ -3,8 +3,12 @@
 ``remat_policy="dots"`` (JAX's ``dots_saveable``: the matmul outputs saved,
 the rest recomputed in the backward) must give the loss and gradients of
 ``"full"`` (whole units recomputed) and of no remat, for every trained
-family: dense (olmo-1b), MoE (granite-moe-3b-a800m), SSM (mamba2-130m) and
-hybrid (zamba2-1.2b at 3 layers: a group and a tail layer).  On the CPU
+family: dense (olmo-1b), MoE (granite-moe-3b-a800m), SSM (mamba2-130m),
+hybrid (zamba2-1.2b at 3 layers: a group and a tail layer), audio
+(whisper-base: the encoder outside the checkpoints, then a unit per
+decoder layer and its cross block) and VLM (llama-3.2-vision-11b at 4
+layers: two groups, each with its cross block), with the cross gates set
+nonzero so that the cross blocks reach the loss.  On the CPU
 each policy runs the same f32 operations in the same order, so the
 gradients are equal to the bit.  No JAX: ``tests/test_torch_train.py`` and
 its siblings hold the "full" gradients against ``jax.grad``.
@@ -20,10 +24,11 @@ from torch.utils.checkpoint import CheckpointPolicy
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import init_params, model_forward
 from repro_torch.models import model as model_lib
+from repro_torch.models.frontend import synth_extra_inputs
 from repro_torch.utils.tree import tree_leaves, tree_unflatten
 
 CASES = {"olmo-1b": None, "granite-moe-3b-a800m": None, "mamba2-130m": None,
-         "zamba2-1.2b": 3}
+         "zamba2-1.2b": 3, "whisper-base": None, "llama-3.2-vision-11b": 4}
 
 
 class _CountMatmuls(TorchDispatchMode):
@@ -56,9 +61,14 @@ def test_dots_policy_gives_the_gradients_of_full(arch):
     if CASES[arch]:
         cfg = dataclasses.replace(cfg, num_layers=CASES[arch])
     params = init_params(cfg, 0, device="cpu")
+    if "cross" in params:
+        gate = params["cross"]["gate"]
+        gate.copy_(torch.from_numpy(np.random.default_rng(1).uniform(
+            0.3, 0.9, gate.shape)))
     tok = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 49))
     batch = {"tokens": torch.from_numpy(tok[:, :-1]),
-             "labels": torch.from_numpy(tok[:, 1:])}
+             "labels": torch.from_numpy(tok[:, 1:]),
+             **synth_extra_inputs(cfg, 2, 0)}
     full = _grads(cfg, params, batch, True, "full")
     backward_matmuls = {}
     for remat, policy in ((True, "dots"), (False, "full")):

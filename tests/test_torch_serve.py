@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -45,7 +46,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                 "core.sla", "scheduler.executor", "scheduler.policy",
                 "scheduler.node_map", "launch.real_fleet", "core.buffers",
                 "core.device_proxy", "core.splicing", "core.validation",
-                "models.moe"):
+                "models.moe", "scheduler.simulator", "scheduler.serving",
+                "scheduler.scenarios"):
         assert f"repro_torch.{mod}" in names
 
 
@@ -57,9 +59,16 @@ def test_engine_without_device_raises_where_there_is_no_card():
 
 
 @pytest.mark.parametrize("arch", ["whisper-base", "llama-3.2-vision-11b"])
-def test_engine_raises_for_families_not_ported(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt_engine.ServingEngine(get_smoke_config(arch), device="cpu")
+def test_engine_serves_the_audio_and_vlm_families(arch):
+    """The engine draws the frame or patch embeddings itself and generates
+    on the CPU: the same tokens from the same seeds, of the vocabulary."""
+    cfg = get_smoke_config(arch)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 12))
+    out = [pt_engine.ServingEngine(cfg, seed=3, device="cpu").generate(
+        prompts, max_new_tokens=4) for _ in range(2)]
+    assert out[0].dtype == torch.int32 and out[0].shape == (2, 4)
+    assert torch.equal(out[0], out[1])
+    assert 0 <= int(out[0].min()) and int(out[0].max()) < cfg.vocab_size
 
 
 def test_serve_cli_runs_plan_and_smoke_on_cpu():

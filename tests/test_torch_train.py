@@ -126,19 +126,22 @@ def test_model_forward_loss_and_grads_match_jax(jax_state_np, dtype, remat,
         _close_rel(leaf.grad.numpy(), want, tol)
 
 
-def test_dense_family_only_and_dots_policy_raise():
-    """The audio and VLM families still raise, naming their ROADMAP item;
-    the dense, MoE, SSM and hybrid families train, under either remat
-    policy ("dots" gives the gradients of "full":
-    ``tests/test_torch_remat.py``)."""
-    for arch in ("whisper-base", "llama-3.2-vision-11b"):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP M7\.4"):
-            init_train_state(get_smoke_config(arch), TrainConfig(),
-                             device="cpu")
+def test_every_family_builds_a_train_state_under_dots():
+    """All six families (dense, MoE, SSM, hybrid, audio, VLM) build a train
+    state under the "dots" remat policy ("dots" gives the gradients of
+    "full": ``tests/test_torch_remat.py``), f32 master weights with the
+    cross gates f32 scalars; an unknown family raises."""
     for arch in ("olmo-1b", "granite-moe-3b-a800m", "mamba2-130m",
-                 "zamba2-1.2b"):
-        init_train_state(get_smoke_config(arch),
-                         TrainConfig(remat_policy="dots"), device="cpu")
+                 "zamba2-1.2b", "whisper-base", "llama-3.2-vision-11b"):
+        state = init_train_state(get_smoke_config(arch),
+                                 TrainConfig(remat_policy="dots"),
+                                 device="cpu")
+        assert all(leaf.dtype == torch.float32
+                   for leaf in tree_leaves(state["params"]))
+    with pytest.raises(ValueError, match="unknown arch_type"):
+        init_train_state(dataclasses.replace(get_smoke_config("olmo-1b"),
+                                             arch_type="diffusion"),
+                         TrainConfig(), device="cpu")
 
 
 @pytest.mark.parametrize("splice", [1, 2])

@@ -143,11 +143,15 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    and 1 ``fused_ce_stats`` per slice; splice 1 against splice 2 at 7
    layers (one group and a tail layer).
 8b. f32, card against CPU: one training step of the zamba2 smoke config.
-9. Train granite-moe-3b-a800m at its widths (40 experts, top-8, vocab
-   49155) cut to ``MOE_TRAIN_LAYERS`` layers, the path
-   ``granite-moe-train``, on phase 4's schedule and with its checks: 2 L
-   ``swa_flash`` and 1 ``fused_ce_stats`` per slice, and the head copied
-   for TMA once per slice.
+9. Train granite-moe-3b-a800m at its full size (32 layers, 40 experts,
+   top-8, vocab 49155) with the donated step (``donate``: params, m and v
+   updated in place, 16 bytes a parameter), the path
+   ``granite-moe-train``, on phase 4's schedule and with its checks: 64
+   ``swa_flash`` (32 layers, again under remat) and 1 ``fused_ce_stats``
+   per slice, and the head copied for TMA once per slice; it prints the
+   state's ``torch.cuda.memory_allocated()`` after setup, and one donated
+   update's transient memory, held under two axis-0 slices of the largest
+   leaf.
 9b. f32, card against CPU: one training step of the granite smoke config.
 10. Train whisper-base at full width (6 encoder and 6 decoder layers,
    encoder frames drawn once by the runtime, cross gates set), the path
@@ -160,6 +164,17 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    through the port's ``FleetSimulator``, the path ``fleet-sim``: numpy on
    the host, no kernel; it prints the digest of every decision (the JAX
    simulator's, on the CPU) and its wall time.
+``donate`` (after 4b). The donated step against the functional one on the
+   olmo-1b smoke config: three steps from copies of one state; losses,
+   params, m and v equal to the bit.
+``dryrun`` (after 11, host only). The planner (``python -m
+   repro_torch.launch.dryrun``, one process per pair of ``DRYRUN_PAIRS``,
+   all at once): olmo-1b, granite-moe and llama-3.2-vision-11b train_4k,
+   zamba2-1.2b prefill_32k and yi-9b decode_32k (donated) on the 16 x 16
+   or 2 x 16 x 16 meshes, traced on fake tensors in a fake world; their
+   roofline terms (data-sheet models), bytes per device and trace seconds;
+   and granite-moe train_4k on one device, donated, whose state bytes must
+   be within 1% of phase 9's on the card.
 12. Print the ``kernels`` JSON line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
@@ -351,12 +366,10 @@ SSM_TRAIN_PATH = "mamba2-130m-train"
 HYBRID_TRAIN_PATH = "zamba2-1.2b-train"
 MOE_TRAIN_PATH = "granite-moe-train"
 AUDIO_TRAIN_PATH = "whisper-base-train"
-# granite-moe-3b-a800m trains at this depth, its widths, experts, top-k
-# and vocabulary kept: all 32 layers (3.37 B parameters) do not fit one
-# 80 GB card, where a step holds f32 params, m, v and gradients and AdamW
-# makes new params, m and v beside them (28 bytes a parameter at the
-# update, 94 GB at 32 layers)
-MOE_TRAIN_LAYERS = 22
+# granite-moe-3b-a800m trains at all 32 layers (3.37 B parameters) with
+# the donated step (``donate``): params, m and v updated in place and one
+# gradient sum, 16 bytes a parameter (54 GB), where the functional step
+# holds 28 at its update (94 GB, more than the card)
 # Each training path: its kernels' launches per slice (remat runs each
 # layer's forward twice), its gradient leaves, the bounds of its first
 # loss (about ln V + sigma^2 / 2 with sigma^2 = d * 0.02^2: from ln V to
@@ -393,14 +406,13 @@ TRAIN_SPECS = {
                             f32_firm="the gradients agree to 1e-3 relative",
                             check_layers=7),
     MOE_TRAIN_PATH: dict(arch="granite-moe-3b-a800m", phase="9",
-                         layers=MOE_TRAIN_LAYERS,
-                         per_slice={"swa_flash": 2 * MOE_TRAIN_LAYERS,
-                                    "fused_ce_stats": 1},
+                         donate=True,
+                         per_slice={"swa_flash": 64, "fused_ce_stats": 1},
                          copies_per_slice={"fused_ce_stats": 1},
                          leaves=13, named=("blocks/moe/router",
                                            "blocks/moe/wi", "blocks/moe/wg",
                                            "blocks/moe/wo", "head"),
-                         first_loss=(10.80, 11.47 + 0.0125 * MOE_TRAIN_LAYERS),
+                         first_loss=(10.80, 11.47 + 0.0125 * 32),
                          tol=dict(loss=1e-4, grad_norm=1e-3),
                          f32_firm="the gradients agree to 1e-3 relative",
                          check_dtype="float32"),
@@ -445,6 +457,8 @@ FP_TIMED = [(1 << 20,), (16, 2048, 8192)]
 # integer instructions per word of the digest (csrc/fingerprint_u32.cu)
 FP_OPS_PER_WORD = 10
 MIGRATE_PATH = "olmo-1b-migrate"
+# torch.cuda.memory_allocated() after each training path's setup: its state
+STATE_BYTES = {}
 
 
 def card_line() -> str:
@@ -953,8 +967,10 @@ def _first_batch_grads(torch, rt, loss_and_grads, global_norm):
 
 def phase_train(torch, card, counters, path=TRAIN_PATH):
     """Training at full width through ElasticRuntime, the path ``path`` of
-    ``TRAIN_SPECS``; returns the main path's launch counts, the runtime (at
-    splice 2) and its mean step time at splice 2 in seconds."""
+    ``TRAIN_SPECS``; returns the main path's launch counts, the launches
+    its steps counted a slice (each kernel's launches over the steps,
+    divided by their slices), the runtime (at splice 2) and its mean step
+    time at splice 2 in seconds."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core.elastic import ElasticRuntime
@@ -1016,8 +1032,9 @@ def phase_train(torch, card, counters, path=TRAIN_PATH):
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
+    donate = spec.get("donate", False)
     rt = ElasticRuntime(cfg, tcfg, world, TRAIN["physical"][0], gb, seq,
-                        device="cuda")
+                        device="cuda", donate=donate)
     if spec.get("gates"):
         _set_gates(torch, rt.state["params"])
         print(f"cross gates set to {rt.state['params']['cross']['gate']}"
@@ -1030,6 +1047,11 @@ def phase_train(torch, card, counters, path=TRAIN_PATH):
           f"AdamW: {n_params} parameters ({n_active} per token); world "
           f"{world}, global batch {gb} x "
           f"{seq}; state made in {time.perf_counter() - t0:.2f} s", flush=True)
+    STATE_BYTES[path] = torch.cuda.memory_allocated()
+    print(f"state on the card after setup (torch.cuda.memory_allocated): "
+          f"{STATE_BYTES[path]} bytes; the step "
+          f"{'updates it in place (donate)' if donate else 'is functional'}",
+          flush=True)
 
     # the kernel path against the plain path on the first batch (these
     # launches are comparisons: the counts are reset before the main path)
@@ -1066,6 +1088,7 @@ def phase_train(torch, card, counters, path=TRAIN_PATH):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     records = []
+    in_steps = dict.fromkeys(counters, 0)
     for physical in TRAIN["physical"]:
         if physical != rt.physical:
             print(f"[resize] {rt.resize(physical)}", flush=True)
@@ -1093,11 +1116,15 @@ def phase_train(torch, card, counters, path=TRAIN_PATH):
         if launched != want:
             raise AssertionError(f"expected launches {want} in a step at "
                                  f"splice {s}, saw {launched}")
+        for name, n in launched.items():
+            in_steps[name] += n
         if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])):
             raise AssertionError(f"non-finite metrics {rec}")
         records.append(dict(rec, ms=ms))
     launches = {name: fn.launches for name, fn in counters.items()}
     slices = sum(r["splice"] for r in records)
+    per_slice = {name: n // slices if n % slices == 0 else n / slices
+                 for name, n in in_steps.items() if n}
     want_copies = {name: n + spec.get("copies_per_slice", {}).get(name, 0)
                    * slices for name, n in copies.items()}
     print(f"launches over the {steps} steps: {launches}; operands copied "
@@ -1119,9 +1146,73 @@ def phase_train(torch, card, counters, path=TRAIN_PATH):
     _profile(torch, f"training step at splice {rt.splice} ({cfg.name}, "
              f"{tokens_per_step} tokens)", lambda: rt.run_steps(1), top=12)
     step_s = np.mean([r["ms"] for r in records if r["splice"] == 2]) / 1e3
+    if donate:
+        _update_transient(torch, rt)
     torch.cuda.empty_cache()
 
-    return launches, rt, float(step_s)
+    return launches, per_slice, rt, float(step_s)
+
+
+def _update_transient(torch, rt):
+    """One donated AdamW update of the runtime's state with gradients of
+    1e-3 N(0, 1): its peak memory above what was allocated before it must
+    stay under two axis-0 slices of the largest leaf (f32)."""
+    from repro_torch.optim.adamw import adamw_update_
+    from repro_torch.optim.schedule import lr_schedule
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    params = rt.state["params"]
+    grads = tree_map(lambda p: torch.randn_like(p).mul_(1e-3), params)
+    largest = max(tree_leaves(params), key=lambda t: t.numel())
+    bound = 2 * largest[0].numel() * 4
+    lr = lr_schedule(rt.state["step"], rt.tcfg)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    adamw_update_(params, grads, rt.state["opt"], lr, rt.tcfg)
+    torch.cuda.synchronize()
+    transient = torch.cuda.max_memory_allocated() - before
+    print(f"donated update: transient memory {transient} bytes above "
+          f"{before}; bound 2 x one axis-0 slice of the largest leaf "
+          f"{tuple(largest.shape)} = {bound} bytes", flush=True)
+    del grads
+    if not transient < bound:
+        raise AssertionError("the donated update's transient memory is "
+                             "above two slices of the largest leaf")
+
+
+def phase_donate(torch):
+    """The donated step against the functional one on the card: three steps
+    of the olmo-1b smoke config from copies of one state, the donated
+    runtime updating its state in place; losses, params, m and v equal to
+    the bit."""
+    from repro_torch.bridge import train_state_to_numpy
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.elastic import ElasticRuntime
+    from repro_torch.training.state import init_train_state
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    print("\n== phase donate: the donated step against the functional one, "
+          "olmo-1b smoke config on the card", flush=True)
+    cfg = get_smoke_config("olmo-1b")
+    tcfg = TrainConfig(total_steps=3, warmup_steps=2, learning_rate=1e-3)
+    state = init_train_state(cfg, tcfg, device="cuda")
+    out = {}
+    for donate in (False, True):
+        rt = ElasticRuntime(cfg, tcfg, 4, 4, 8, 128,
+                            state=tree_map(torch.clone, state),
+                            device="cuda", donate=donate)
+        losses = [r["loss"] for r in rt.run_steps(3)]
+        out[donate] = (losses, tree_leaves(train_state_to_numpy(rt.state)))
+    (loss_f, leaves_f), (loss_d, leaves_d) = out[False], out[True]
+    same = sum(np.array_equal(a, b) for a, b in zip(leaves_f, leaves_d))
+    print(f"losses functional {loss_f!r}, donated {loss_d!r}; {same} of "
+          f"{len(leaves_f)} leaves of params, m, v, count and step equal to "
+          f"the bit", flush=True)
+    if loss_f != loss_d or same != len(leaves_f):
+        raise AssertionError("the donated step differs from the functional "
+                             "one")
 
 
 def phase_train_f32(path=TRAIN_PATH):
@@ -1208,6 +1299,96 @@ def phase_train_f32(path=TRAIN_PATH):
           f"{1e-3 * lr!r}), {loose_diff!r} = {loose_diff / lr!r} lr "
           f"elsewhere (bound 0.2 lr); share of the rest per leaf "
           f"{[f'{x:.4g}' for x in shares]} (bound 0.05)", flush=True)
+
+
+DRYRUN_PATH = "dryrun"
+# the planner's pairs: (arch, shape, mesh, extra CLI arguments); each runs
+# as its own ``python -m repro_torch.launch.dryrun`` process (a fake world
+# of 256 or 512 ranks is a process's own), all at once, on the host
+DRYRUN_PAIRS = [
+    ("olmo-1b", "train_4k", "single", []),
+    ("granite-moe-3b-a800m", "train_4k", "single", []),
+    ("zamba2-1.2b", "prefill_32k", "single", []),
+    ("yi-9b", "decode_32k", "single", ["--donate"]),
+    ("llama-3.2-vision-11b", "train_4k", "multi", []),
+    # one device, donated: its state bytes against phase 9's card
+    ("granite-moe-3b-a800m", "train_4k", "single",
+     ["--mesh-shape", "1,1", "--donate"]),
+]
+DRYRUN_TIMEOUT = 600
+# the (1, 1) pair's batch: tokens and labels, 256 x 4096 int64
+DRYRUN_BATCH_BYTES = 2 * 256 * 4096 * 8
+
+
+def phase_dryrun(state_bytes):
+    """The dry-run planner on the host (no card): each pair of
+    ``DRYRUN_PAIRS`` traced on fake tensors in a fake world of the mesh's
+    size; its roofline terms (data-sheet models), bytes per device and
+    trace seconds.  The one-device donated granite pair's state (its
+    arguments less the batch) and its aliased bytes must be within 1% of
+    ``state_bytes``, phase 9's ``torch.cuda.memory_allocated()`` after its
+    setup.  Returns the records."""
+    import os
+
+    print(f"\n== phase {DRYRUN_PATH}: the planner's pairs, traced on the "
+          f"host", flush=True)
+    out_dir = ROOT / "build" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    jobs = []
+    t0 = time.perf_counter()
+    for i, (arch, shape, mesh, extra) in enumerate(DRYRUN_PAIRS):
+        out = out_dir / f"{i}.{arch}.{shape}.{mesh}.json"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", mesh, "--out", str(out),
+               *extra]
+        jobs.append((arch, shape, mesh, extra, out, subprocess.Popen(
+            cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    records = []
+    try:
+        for arch, shape, mesh, extra, out, proc in jobs:
+            _, err = proc.communicate(timeout=DRYRUN_TIMEOUT)
+            if proc.returncode != 0:
+                lines = [ln for ln in err.splitlines() if ln.strip()
+                         and "Warn" not in ln and "alltoall" not in ln]
+                raise AssertionError(f"dry-run {arch} x {shape} [{mesh}] "
+                                     f"{extra} failed:\n"
+                                     + "\n".join(lines[-60:]))
+            rec = json.loads(out.read_text())
+            if rec.get("status") != "ok":
+                raise AssertionError(f"dry-run {arch} x {shape}: {rec}")
+            rf, mem = rec["roofline"], rec["memory"]
+            print(f"{arch} x {shape} [{mesh}{' ' + ' '.join(extra) if extra else ''}]"
+                  f" chips {rec['chips']}: compute_s {rf['compute_s']!r}, "
+                  f"memory_s {rf['memory_s']!r}, collective_s "
+                  f"{rf['collective_s']!r}, dominant {rf['dominant']}, "
+                  f"useful_flop_ratio {rf['useful_flop_ratio']!r}, "
+                  f"bytes_per_device {mem['bytes_per_device']}, "
+                  f"trace_seconds {rec['trace_seconds']}; memory {mem}; "
+                  f"collectives {rec['collectives']}", flush=True)
+            records.append(rec)
+    finally:
+        for *_, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"dry-run phase: {len(records)} pairs in "
+          f"{time.perf_counter() - t0:.1f} s (in parallel); the terms are "
+          f"data-sheet models (H100 SXM bf16 peak, HBM and InfiniBand NDR "
+          f"rates), not measurements", flush=True)
+    mem = records[-1]["memory"]
+    state = mem["argument_size_in_bytes"] - DRYRUN_BATCH_BYTES
+    for name, val in (("arguments less the batch", state),
+                      ("aliased", mem["alias_size_in_bytes"])):
+        rel = abs(val - state_bytes) / state_bytes
+        print(f"granite-moe one-device dry-run, donated: {name} {val} bytes "
+              f"against the card's state after phase 9's setup "
+              f"{state_bytes} bytes: rel {rel!r} (bound 0.01)", flush=True)
+        if not rel <= 0.01:
+            raise AssertionError("the dry-run's state bytes disagree with "
+                                 "the card's")
+    return records
 
 
 def _host_memory() -> dict:
@@ -1879,23 +2060,28 @@ def main() -> int:
                for arch, expected in PATHS}
     phase_checks(torch, get_config, get_smoke_config, init_params,
                  prefill_fn, decode_step_fn, ServingEngine)
-    by_path[TRAIN_PATH], rt, step_s = phase_train(torch, card, counters)
+    per_slice = {}
+    by_path[TRAIN_PATH], per_slice[TRAIN_PATH], rt, step_s = phase_train(
+        torch, card, counters)
     phase_train_f32(TRAIN_PATH)
+    phase_donate(torch)
     job = [rt]  # phase 5 takes the only reference, to free the source
     del rt
     by_path[MIGRATE_PATH] = phase_migrate(torch, card, counters, job, step_s)
-    by_path[SSM_TRAIN_PATH], rt, _ = phase_train(torch, card, counters,
-                                                 SSM_TRAIN_PATH)
+    by_path[SSM_TRAIN_PATH], per_slice[SSM_TRAIN_PATH], rt, _ = phase_train(
+        torch, card, counters, SSM_TRAIN_PATH)
     del rt
     torch.cuda.empty_cache()
     phase_train_f32(SSM_TRAIN_PATH)
     by_path[FLEET_PATH] = phase_fleet(torch, counters)
     for path in (HYBRID_TRAIN_PATH, MOE_TRAIN_PATH, AUDIO_TRAIN_PATH):
-        by_path[path], rt, _ = phase_train(torch, card, counters, path)
+        by_path[path], per_slice[path], rt, _ = phase_train(
+            torch, card, counters, path)
         del rt
         torch.cuda.empty_cache()
         phase_train_f32(path)
     by_path[SIM_PATH] = phase_fleet_sim(counters)
+    phase_dryrun(STATE_BYTES[MOE_TRAIN_PATH])
 
     kernels = []
     for name, route, source, replaces, stats in (
@@ -1912,10 +2098,16 @@ def main() -> int:
              "src/repro_torch/kernels/checksum/csrc/fingerprint_u32.cu",
              "src/repro/kernels/checksum/fingerprint.py:55", fp_stats)):
         paths = {arch: n[name] for arch, n in by_path.items() if n[name]}
+        # each training path's launches a slice, as its steps counted them
+        # (``launches_by_path`` sums its five steps, seven slices)
+        slice_counts = {path: n[name] for path, n in per_slice.items()
+                        if name in n}
         kernels.append({
             "name": name, "route": route, "source": source,
             "replaces": replaces, "launches": sum(paths.values()),
-            "launches_by_path": paths, "max_abs_err": stats["max_abs_err"],
+            "launches_by_path": paths,
+            "launches_per_slice_by_path": slice_counts,
+            "max_abs_err": stats["max_abs_err"],
             "ms": stats["ms"], "plain_ms": stats["plain_ms"],
             "bound_ms": stats["bound_ms"], "bound_by": stats["bound_by"],
             "library_ms": stats["library_ms"],

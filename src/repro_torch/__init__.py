@@ -1,8 +1,9 @@
 """PyTorch port of the ``repro`` package, for NVIDIA Hopper (H100).
 
-The layout mirrors ``repro``: ``configs``, ``core``, ``data``, ``models``,
-``kernels``, ``optim``, ``scheduler``, ``serving``, ``training``, ``launch``
-and ``utils`` sit where their JAX counterparts do.
+The layout mirrors ``repro``: ``analysis``, ``configs``, ``core``, ``data``,
+``models``, ``kernels``, ``optim``, ``parallel``, ``scheduler``,
+``serving``, ``training``, ``launch`` and ``utils`` sit where their JAX
+counterparts do.
 The port imports ``torch`` and never ``jax``, and nothing of ``repro``: it
 keeps its own copies of the JAX-free pieces it needs.
 
@@ -11,9 +12,9 @@ pulls in no kernel build.
 """
 import importlib
 
-_SUBMODULES = ("bridge", "configs", "core", "data", "kernels", "launch",
-               "models", "optim", "scheduler", "serving", "training",
-               "utils")
+_SUBMODULES = ("analysis", "bridge", "configs", "core", "data", "kernels",
+               "launch", "models", "optim", "parallel", "scheduler",
+               "serving", "training", "utils")
 
 
 def __getattr__(name):

@@ -4,21 +4,38 @@
 The barrier protocol's state is two integers, (need_barrier, ack_barrier).
 They travel with the job's own step: the step sums the payload over the
 data shards and returns it with its metrics, so no out-of-band channel is
-introduced.  One process holds every shard here; the sum across processes
-(JAX's ``psum`` over the mesh's data axis) belongs to the multi-GPU slice
-(ROADMAP M9).
+introduced.  Without a mesh one process holds every shard; under a mesh
+the sum crosses the data axes as an all-reduce, JAX's ``psum``.
 """
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 
+from repro_torch.parallel.constraints import is_dtensor
 
-def meta_allreduce(flags: torch.Tensor) -> torch.Tensor:
+
+def meta_allreduce(flags: torch.Tensor, mesh=None,
+                   data_axes: Sequence[str] = ("pod", "data")
+                   ) -> torch.Tensor:
     """SUM-allreduce the 2-int (need, ack) payload across data shards.
 
-    flags: (n_data_shards, 2) int32.  Returns the summed (2,) payload.
+    flags: (n_data_shards, 2) int32, the same on every rank (or a DTensor).
+    Under a ``DeviceMesh`` its rows are sharded over the mesh's data axes
+    and summed by an all-reduce.  Returns the summed (2,) payload, a plain
+    tensor on every rank.
     """
-    return flags.sum(dim=0, dtype=torch.int32)
+    if mesh is None:
+        return flags.sum(dim=0, dtype=torch.int32)
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    names = list(mesh.mesh_dim_names)
+    if not is_dtensor(flags):
+        flags = distribute_tensor(flags, mesh, [
+            Shard(0) if a in data_axes else Replicate() for a in names])
+    summed = flags.sum(dim=0, dtype=torch.int32)
+    return summed.redistribute(mesh, [Replicate()] * len(names)).to_local()
 
 
 class BarrierDriver:

@@ -13,8 +13,14 @@ runtime enforces the paper's placement rule.
 
 Every physical rank of the job is time-sliced onto the one ``device``
 here: the step runs the s slices of the global batch in turn, as the JAX
-step scans over them.  Spreading the job over several cards is the
-multi-GPU slice (ROADMAP M9).
+step scans over them.  The sharded step over a ``DeviceMesh`` is the same
+``build_train_step`` on DTensors (``parallel/``); the card runs see one
+device.
+
+``donate=True`` runs the donated step (``training/step.py``): the state is
+updated in place, 16 bytes a parameter where the functional step holds 28
+at its update.  JAX's runtime does not donate, so the functional step
+stays the default.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ from repro_torch.optim.zero import validate_partial_sharding
 from repro_torch.training.state import TrainState, init_train_state
 from repro_torch.training.step import build_train_step
 from repro_torch.utils import resolve_device
+from repro_torch.utils.tree import tree_map
 
 
 def _check_divides(world_size: int, physical: int) -> None:
@@ -62,13 +69,14 @@ class ElasticRuntime:
                  physical_devices: int, global_batch: int, seq_len: int,
                  seed: int = 0, state: Optional[TrainState] = None,
                  pipeline_state: Optional[Dict] = None, *, device="cuda",
-                 extra_inputs: Optional[Dict] = None):
+                 extra_inputs: Optional[Dict] = None, donate: bool = False):
         _check_divides(world_size, physical_devices)
         self.cfg = cfg
         self.tcfg = tcfg
         self.device = resolve_device(device)
         self.world_size = world_size
         self.physical = physical_devices
+        self.donate = donate
         validate_partial_sharding(world_size, tcfg.zero_shard_factor,
                                   world_size // physical_devices)
         self.pipeline = DataPipeline(cfg.vocab_size, seq_len, global_batch,
@@ -101,7 +109,8 @@ class ElasticRuntime:
         if s not in self._steps:
             t0 = time.time()
             self._steps[s] = build_train_step(self.cfg, self.tcfg, splice=s,
-                                              with_barrier=True)
+                                              with_barrier=True,
+                                              donate=self.donate)
             self.compile_seconds += time.time() - t0
         return self._steps[s]
 
@@ -166,9 +175,14 @@ class ElasticRuntime:
     # ------------------------------------------------------------- snapshots
     def snapshot(self) -> Dict:
         """The complete program state (work-conserving checkpoint payload),
-        as numpy on the host, in the JAX runtime's layout."""
+        as numpy on the host, in the JAX runtime's layout.  Its arrays are
+        copies: a donated step writes the state in place, and numpy views
+        of CPU tensors would see it."""
+        state = train_state_to_numpy(self.state)
+        if self.donate:
+            state = tree_map(np.copy, state)
         return {
-            "state": train_state_to_numpy(self.state),
+            "state": state,
             "pipeline": self.pipeline.snapshot(),
             "world_size": self.world_size,
         }
@@ -176,7 +190,8 @@ class ElasticRuntime:
     @classmethod
     def from_snapshot(cls, cfg: ModelConfig, tcfg: TrainConfig, snap: Dict,
                       physical_devices: int, global_batch: int, seq_len: int,
-                      *, device="cuda") -> "ElasticRuntime":
+                      *, device="cuda", donate: bool = False
+                      ) -> "ElasticRuntime":
         """A runtime resumed from ``snapshot()``'s payload, or from a
         checkpoint: ``state`` one worker's tree of numpy arrays as
         ``CheckpointStore.restore`` returns it (in the manifest's or the
@@ -186,4 +201,5 @@ class ElasticRuntime:
         state = train_state_from_jax(snap["state"], cfg, device=dev)
         return cls(cfg, tcfg, snap["world_size"], physical_devices,
                    global_batch, seq_len, state=state,
-                   pipeline_state=snap["pipeline"], device=dev)
+                   pipeline_state=snap["pipeline"], device=dev,
+                   donate=donate)

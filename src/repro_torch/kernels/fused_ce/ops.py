@@ -63,6 +63,59 @@ class _FusedCrossEntropy(torch.autograd.Function):
         return dh, (dw.to(head.dtype) if need_w else None), None
 
 
+class _FusedCEStats(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, hidden, head, labels):
+        lse, pick = _stats(hidden, head, labels)
+        inside = (labels >= 0) & (labels < head.shape[1])
+        pick = torch.where(inside[:, None], pick, 0.0)
+        ctx.save_for_backward(hidden, head, labels, lse)
+        ctx.set_materialize_grads(False)
+        return lse[:, 0], pick[:, 0]
+
+    @staticmethod
+    def backward(ctx, g_lse, g_pick):
+        hidden, head, labels, lse = ctx.saved_tensors
+        need_h, need_w = ctx.needs_input_grad[:2]
+        w = head.float()
+        dh = torch.empty_like(hidden) if need_h else None
+        dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device) \
+            if need_w else None
+        for r0 in range(0, hidden.shape[0], BACKWARD_ROWS):
+            rows = slice(r0, r0 + BACKWARD_ROWS)
+            h = hidden[rows].float()
+            # p = softmax * g_lse + onehot(label) * g_pick, in place of the
+            # logits
+            p = torch.matmul(h, w).sub_(lse[rows]).exp_()
+            if g_lse is None:
+                p.zero_()
+            else:
+                p.mul_(g_lse[rows, None])
+            if g_pick is not None:
+                lab = labels[rows].long()
+                inside = (lab >= 0) & (lab < w.shape[1])
+                p.scatter_add_(1, torch.where(inside, lab, 0)[:, None],
+                               (g_pick[rows] * inside)[:, None])
+            if need_h:
+                dh[rows] = torch.matmul(p, w.T).to(hidden.dtype)
+            if need_w:
+                dw.addmm_(h.T, p)
+        return dh, (dw.to(head.dtype) if need_w else None), None
+
+
+def fused_ce_shard_stats(hidden: torch.Tensor, head: torch.Tensor,
+                         labels: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lse (T,), pick (T,)) of each row over the vocabulary ``head``
+    holds, differentiable in hidden and head: the statistics of one shard
+    of a vocabulary-parallel CE.  pick is the label's logit, 0 for a label
+    outside [0, V) (held by another shard, or ignored); the caller
+    combines the shards' lse by a logsumexp and their picks by a sum.
+    Shapes as ``fused_cross_entropy``'s; the forward is the kernel on CUDA
+    tensors, its plain version on CPU tensors."""
+    return _FusedCEStats.apply(hidden.contiguous(), head, labels)
+
+
 def fused_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
                         labels: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -23,8 +23,11 @@ families dense (olmo-1b and the other dense configs), moe
 the seed) and VLM (``--arch llama-3.2-vision-11b``, its image embeddings
 likewise; at full width its f32 weights and AdamW moments do not fit one
 80 GB card).
-``--layers N`` cuts the depth (granite-moe-3b-a800m's 32 layers do not
-fit one 80 GB card with f32 weights and AdamW).  ``--ckpt-every N``
+``--donate`` updates the state in place (JAX's ``donate_argnums``): 16
+bytes a parameter where the functional update holds 28, so that
+granite-moe-3b-a800m trains at all 32 layers on one 80 GB card
+(``--arch granite-moe-3b-a800m --full --donate``).  ``--layers N`` cuts
+the depth.  ``--ckpt-every N``
 takes a transparent checkpoint of every logical worker every N steps into
 an in-memory content-deduped store, as the JAX command does.
 """
@@ -57,6 +60,8 @@ def main(argv=None) -> None:
     ap.add_argument("--seq-len", type=int, default=64)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--donate", action="store_true",
+                    help="update the state in place (16 bytes a parameter)")
     ap.add_argument("--resize", action="append", default=[],
                     help="step:new_physical (repeatable)")
     ap.add_argument("--device", default="cuda",
@@ -79,7 +84,8 @@ def main(argv=None) -> None:
         resizes[int(step)] = int(phys)
 
     rt = ElasticRuntime(cfg, tcfg, args.world, args.physical,
-                        args.global_batch, args.seq_len, device=args.device)
+                        args.global_batch, args.seq_len, device=args.device,
+                        donate=args.donate)
     store = CheckpointStore()
     t0 = time.time()
     events = []

@@ -11,8 +11,18 @@ Cross attention (``kv``) and non-causal self-attention (the audio
 encoder) run ``full_attention``, a plain torch core: JAX routes them to
 ``blockwise_attention(causal=False)``, plain jnp and not a Pallas kernel
 (the Pallas ``swa_flash`` is causal only).  Decode attention stays plain
-torch, as it is plain jnp in JAX.  There is one device, so the JAX
-sharding constraints and mesh branches have no counterpart here.
+torch, as it is plain jnp in JAX.
+
+Under a mesh (``parallel/constraints.use_mesh``) the tensors are DTensors.
+The ``constrain`` calls stand where JAX's do; the attention core runs on
+each device's (batch, head) shard through ``shard_map``, whose input and
+output specs stand for JAX's constraints on the blocked q/k/v and on the
+scan's accumulators.  Heads that do not divide the "model" axis are padded
+with zero heads (exact: sliced off after the core), as in JAX.  Where the
+heads are fewer than the "model" axis, JAX shards the query blocks over it
+(sequence parallel); here the non-causal core does the same and the causal
+core runs replicated over "model" (``CHANGES.md``).  Outside a mesh every
+``constrain`` is a no-op and the paths are the single-device ones.
 """
 from __future__ import annotations
 
@@ -23,6 +33,9 @@ import torch
 
 from repro_torch.kernels.swa_attention import swa_attention
 from repro_torch.models.common import apply_rope, dense_init
+from repro_torch.parallel.constraints import (BATCH, MODEL, constrain,
+                                              current_mesh, is_dtensor,
+                                              local_size, shard_map)
 
 NEG_INF = -1e30
 
@@ -50,13 +63,78 @@ def _repeat_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("bsd,dhk->bshk") as one matmul."""
-    return (x @ w.to(x.dtype).flatten(1)).unflatten(-1, w.shape[1:])
+    """einsum("bsd,dhk->bshk") as one matmul.  Under a mesh the (heads x
+    head dim) columns are pinned over "model" only where the heads divide
+    it: a split inside a head cannot be unflattened (no DTensor strategy),
+    and JAX's ``constrain`` over heads falls back to replicated there."""
+    y = _pin_heads(x @ _merged(w.to(x.dtype), 1, 2), w.shape[1])
+    return y.unflatten(-1, w.shape[1:])
 
 
 def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """einsum("bshk,hkd->bsd") as one matmul."""
-    return o.flatten(2) @ wo.to(o.dtype).flatten(0, 1)
+    """einsum("bshk,hkd->bsd") as one matmul.  Under a mesh the merged
+    (heads x head dim) activations are pinned as ``_project`` pins its
+    output, for their gradient's unflatten."""
+    return _pin_heads(o.flatten(2), o.shape[2]) @ _merged(wo.to(o.dtype),
+                                                          0, 1)
+
+
+def _pin_heads(y: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, S, heads x head dim) activations over "model" where ``heads``
+    divides it, else replicated over it (a no-op without a mesh)."""
+    if not is_dtensor(y):
+        return y
+    split = heads % local_size(current_mesh(), MODEL) == 0
+    return constrain(y, BATCH, None, MODEL if split else None)
+
+
+def _merged(w: torch.Tensor, start: int, end: int) -> torch.Tensor:
+    """``w.flatten(start, end)``.  Under a mesh the merged weight is pinned
+    to the split it inherits from ``w`` (a split of the outer merged dim,
+    the heads, stays; one of an inner dim cannot be expressed), so that its
+    gradient comes back in a split the unflatten can undo (DTensor has no
+    strategy to split a dim that is split in another way)."""
+    wf = w.flatten(start, end)
+    if not is_dtensor(wf) or current_mesh() is None:
+        return wf
+    from torch.distributed.tensor import Shard
+
+    axes = [[] for _ in range(wf.ndim)]
+    for name, pl in zip(wf.device_mesh.mesh_dim_names, w.placements):
+        if isinstance(pl, Shard) and not start < pl.dim <= end:
+            axes[pl.dim if pl.dim <= start else pl.dim - end + start].append(
+                name)
+    return constrain(wf, *(None if not a else a[0] if len(a) == 1
+                           else tuple(a) for a in axes))
+
+
+HEADS = (BATCH, None, MODEL, None)      # (B, S, H, D) over heads
+SEQ = (BATCH, MODEL, None, None)        # query positions over "model"
+ROWS = (BATCH, None, None, None)        # replicated over "model"
+
+
+def _sharded_core(core, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  nh: int, causal: bool) -> torch.Tensor:
+    """``core(q, k, v)`` on each device's shard under a mesh: (batch, head)
+    shards, after padding the heads to a multiple of the "model" axis
+    (JAX's ``hpad``) when they are at least as many; with fewer heads,
+    query positions over "model" for a non-causal core and no "model"
+    split for a causal one.  Returns the (B, Sq, nh, D) output, over heads
+    (JAX's ``o`` constraint)."""
+    msz = local_size(current_mesh(), "model")
+    hpad = (-nh) % msz if (msz > 1 and nh >= msz) else 0
+    if hpad:   # zero heads, concatenated (some PyTorch cannot pad a DTensor)
+        q, k, v = (constrain(torch.cat([t, torch.zeros(
+            (*t.shape[:2], hpad, t.shape[3]), device=t.device,
+            dtype=t.dtype)], dim=2), *HEADS) for t in (q, k, v))
+    if msz > 1 and nh < msz:
+        qs, kvs = (SEQ, ROWS) if not causal else (ROWS, ROWS)
+    else:
+        qs = kvs = HEADS
+    o = shard_map(core, (q, k, v), (qs, kvs, kvs), (0,))
+    if hpad:
+        o = o[:, :, :nh]
+    return constrain(o, *HEADS)
 
 
 def self_attention_with_kv(params: Dict, x: torch.Tensor, *, num_heads: int,
@@ -72,13 +150,17 @@ def self_attention_with_kv(params: Dict, x: torch.Tensor, *, num_heads: int,
     q = _project(x, params["wq"])
     k = _project(x, params["wk"])
     v = _project(x, params["wv"])
+    q = constrain(q, *HEADS)
     if rope_theta > 0:
         positions = torch.arange(s, device=x.device)[None, :]
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
-    o = swa_attention(q, _repeat_kv(k, num_heads), _repeat_kv(v, num_heads),
-                      window=window)
-    return _out_proj(o, params["wo"]), k, v
+    kr = constrain(_repeat_kv(k, num_heads), *HEADS)
+    vr = constrain(_repeat_kv(v, num_heads), *HEADS)
+    o = _sharded_core(lambda q_, k_, v_: swa_attention(q_, k_, v_,
+                                                       window=window),
+                      q, kr, vr, num_heads, causal=True)
+    return constrain(_out_proj(o, params["wo"]), BATCH, None, None), k, v
 
 
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -117,12 +199,15 @@ def attention_forward(params: Dict, x: torch.Tensor, *, num_heads: int,
     q = _project(x, params["wq"])
     k = _project(src, params["wk"])
     v = _project(src, params["wv"])
+    q = constrain(q, *HEADS)
     if kv is None and rope_theta > 0:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
-    o = full_attention(q, _repeat_kv(k, num_heads), _repeat_kv(v, num_heads))
-    return _out_proj(o, params["wo"])
+    kr = constrain(_repeat_kv(k, num_heads), *HEADS)
+    vr = constrain(_repeat_kv(v, num_heads), *HEADS)
+    o = _sharded_core(full_attention, q, kr, vr, num_heads, causal=False)
+    return constrain(_out_proj(o, params["wo"]), BATCH, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -151,7 +236,10 @@ def decode_attention(params: Dict, x: torch.Tensor, cache: Dict, pos: int,
         raise ValueError(f"decode takes one token per row, got {x.shape[1]}")
     b = x.shape[0]
     cache_len = cache["k"].shape[1]
-    q = _project(x, params["wq"])
+    # decode sharding: batch over data, the CACHE LENGTH over model (GQA
+    # kv heads are too few to shard 16-way); heads stay replicated and the
+    # softmax reduces over model-sharded cache segments
+    q = constrain(_project(x, params["wq"]), BATCH, None, None, None)
     k = _project(x, params["wk"])
     v = _project(x, params["wv"])
     if rope_theta > 0:
@@ -160,15 +248,18 @@ def decode_attention(params: Dict, x: torch.Tensor, cache: Dict, pos: int,
         k = apply_rope(k, p, rope_theta)
 
     slot = (pos % cache_len) if window else min(pos, cache_len - 1)
-    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    write_slot(cache["k"], slot, k[:, 0])
+    write_slot(cache["v"], slot, v[:, 0])
 
-    kk = _repeat_kv(cache["k"].to(x.dtype), num_heads)
-    vv = _repeat_kv(cache["v"].to(x.dtype), num_heads)
+    kk = constrain(_repeat_kv(cache["k"].to(x.dtype), num_heads),
+                   BATCH, MODEL, None, None)
+    vv = constrain(_repeat_kv(cache["v"].to(x.dtype), num_heads),
+                   BATCH, MODEL, None, None)
     scale = 1.0 / math.sqrt(q.shape[-1])
     # scores in f32 from working-dtype operands, as JAX's
     # preferred_element_type=f32: bf16 products are exact in f32
     s = torch.einsum("bshk,bthk->bhst", (q * scale).float(), kk.float())
+    s = constrain(s, BATCH, None, None, MODEL)
     idx = torch.arange(cache_len, device=x.device)
     if window:
         # ring buffer: valid slots are those written within the last
@@ -181,6 +272,37 @@ def decode_attention(params: Dict, x: torch.Tensor, cache: Dict, pos: int,
     p = torch.softmax(s, dim=-1).to(x.dtype)
     o = torch.einsum("bhst,bthk->bshk", p, vv)
     return _out_proj(o, params["wo"]), cache
+
+
+def write_slot(cache: torch.Tensor, slot: int, val: torch.Tensor) -> None:
+    """``cache[:, slot] = val`` in the cache's dtype, in place.  Under a
+    mesh the cache (B, C, ...) is a DTensor whose length C may be split
+    over "model": each device writes the slot if its segment holds it (no
+    DTensor strategy writes one index of a sharded dim)."""
+    val = val.to(cache.dtype)
+    mesh = current_mesh()
+    if mesh is None or not is_dtensor(cache):
+        cache[:, slot] = val
+        return
+    from torch.distributed.tensor import Shard
+
+    names = list(mesh.mesh_dim_names)
+    spec = tuple(tuple(a for a, pl in zip(names, cache.placements)
+                       if isinstance(pl, Shard) and pl.dim == d) or None
+                 for d in range(cache.ndim))
+    seg = [names.index(a) for a in (spec[1] or ())]
+
+    def write(c, v_):
+        start = 0
+        for i in seg:       # major first: this device's offset along C
+            start = start * mesh.size(i) + mesh.get_local_rank(i)
+        start *= c.shape[1]
+        if start <= slot < start + c.shape[1]:
+            c[:, slot - start] = v_
+        return c
+
+    vspec = (spec[0],) + (None,) * (val.ndim - 1)
+    shard_map(write, (cache, val), (spec, vspec), (0,))
 
 
 def init_cross_cache(params: Dict, kv_src: torch.Tensor, *,

@@ -32,11 +32,17 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.fused_ce import fused_cross_entropy
+from repro_torch.kernels.fused_ce.ops import fused_ce_shard_stats
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import apply_norm, dense_init, norm_param
+from repro_torch.parallel.constraints import (BATCH, MODEL, clean_spec,
+                                              constrain, current_mesh,
+                                              is_dtensor, local_size,
+                                              mesh_axis_sizes, pin,
+                                              shard_map)
 from repro_torch.utils import torch_dtype
 
 PORTED = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
@@ -110,20 +116,115 @@ def _stack(trees):
     return torch.stack(trees)
 
 
-def _unstack(tree, n: int):
-    """The ``n`` layers of a stacked tree, as views.
+def _unstack(tree, n: int) -> "_Layers":
+    """The ``n`` layers of a stacked tree, as views, each made when it is
+    taken (``layers[i]``, a slice of them, or in turn by iterating).
 
-    ``torch.unbind`` and not ``tree[i]`` per layer: under autograd the
-    gradient of an indexed layer is a zero tensor of the whole stack, so a
-    training step would fill and add L full-size f32 stacks per leaf;
-    unbind's backward stacks the L layer gradients once."""
+    Not ``tree[i]`` per layer: under autograd the gradient of an indexed
+    layer is a zero tensor of the whole stack, so a training step would
+    fill and add L full-size f32 stacks per leaf.  Nor one ``torch.unbind``
+    before the layers run: autograd runs a node after every node made
+    later, so its backward waits for the last layer's and holds all L
+    layer gradients until then.  Under autograd each layer is a
+    ``_LayerOf`` view made just before its layer runs, whose backward then
+    runs right after the layer's and adds its gradient into one stack
+    (``_GradSum``)."""
     if tree is None:
-        return [None] * n
+        return _Layers(lambda i: None, n)
     if isinstance(tree, dict):
         per_key = {key: _unstack(val, n) for key, val in tree.items()}
-        return [{key: layers[i] for key, layers in per_key.items()}
-                for i in range(n)]
-    return list(tree.unbind(0))
+        return _Layers(lambda i: {key: layers[i]
+                                  for key, layers in per_key.items()}, n)
+    if is_dtensor(tree):
+        # a 1-D stacked leaf (the cross gates) may be split over its layer
+        # axis; DTensor has no unbind of a split dim: gather it (L scalars)
+        tree = constrain(tree, *(None,) * tree.ndim) if tree.ndim == 1 \
+            else tree
+    if torch.is_grad_enabled() and tree.requires_grad:
+        box = _GradSum(tree)
+        whole = _StackOf.apply(tree, box)
+        return _Layers(lambda i: _LayerOf.apply(whole, i, box), n)
+    return _Layers(tree.unbind(0).__getitem__, n)
+
+
+class _Layers:
+    """A stack's layers, each made by ``take(i)`` when it is taken."""
+
+    def __init__(self, take, n: int):
+        self._take, self._n = take, n
+
+    def __len__(self) -> int:
+        return self._n
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return [self._take(j) for j in range(*i.indices(self._n))]
+        if not -self._n <= i < self._n:
+            raise IndexError(i)
+        return self._take(i % self._n)
+
+    def __iter__(self):
+        return (self._take(i) for i in range(self._n))
+
+
+class _GradSum:
+    """The gradient of one stacked tensor, summed layer by layer: into the
+    tensor's own ``.grad`` when it is a leaf that has one (a later slice
+    of a spliced step, which accumulates there), else into a zero stack
+    made at the first layer's backward and handed to autograd by
+    ``_StackOf``'s backward, after every layer's (the first slice's then
+    becomes the leaf's ``.grad`` without a copy).  Each layer's gradient
+    is freed as soon as it is added; the additions are those of unbind's
+    stack and ``.grad``'s accumulation, so the sums are the same bits."""
+
+    def __init__(self, tree: torch.Tensor):
+        self.tree, self.stack = tree, None
+
+    def add(self, i: int, grad: torch.Tensor) -> None:
+        tree = self.tree
+        if tree.is_leaf and tree.grad is not None:
+            target = tree.grad
+        else:
+            if self.stack is None:
+                self.stack = torch.zeros_like(tree)
+            target = self.stack
+        layer = target[i]
+        if is_dtensor(layer):   # a partial sum is reduced to the sum's split
+            grad = grad.redistribute(layer.device_mesh, layer.placements)
+        layer.add_(grad)
+
+
+class _StackOf(torch.autograd.Function):
+    """The stacked tensor as it is; its backward runs after every
+    ``_LayerOf`` taken from it and returns their sum (None once it went
+    into ``.grad``)."""
+
+    @staticmethod
+    def forward(ctx, tree, box):
+        ctx.box = box
+        ctx.set_materialize_grads(False)
+        return tree.view_as(tree)
+
+    @staticmethod
+    def backward(ctx, _grad):
+        stack, ctx.box.stack = ctx.box.stack, None
+        return stack, None
+
+
+class _LayerOf(torch.autograd.Function):
+    """Layer ``i`` of the stack, a view; its backward adds the layer's
+    gradient into the sum and passes nothing on."""
+
+    @staticmethod
+    def forward(ctx, whole, i, box):
+        ctx.i, ctx.box = i, box
+        return whole[i]
+
+    @staticmethod
+    def backward(ctx, grad):
+        if grad is not None:
+            ctx.box.add(ctx.i, grad)
+        return None, None, None
 
 
 def group_layout(cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -184,10 +285,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device,
 
     The same shapes, scales and tree as ``repro.models.init_params``; the
     values differ, since the two frameworks draw other random numbers.
-    ``F32_LEAVES`` stay f32 whatever ``dtype``, as in JAX.
+    ``F32_LEAVES`` stay f32 whatever ``dtype``, as in JAX.  On the
+    ``meta`` device it allocates nothing (the dry-run's abstract state).
     """
     check_ported(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    # a meta tensor draws nothing: a CPU generator stands in for it
+    gen_device = "cpu" if torch.device(device).type == "meta" else device
+    gen = torch.Generator(device=gen_device).manual_seed(seed)
     params: Dict = {
         "embed": dense_init(gen, (cfg.vocab_size, cfg.d_model), device=device,
                             dtype=dtype),
@@ -353,9 +457,37 @@ def _hybrid_group(cfg: ModelConfig, group, x: torch.Tensor) -> torch.Tensor:
     return _mlp_res(cfg, shared, _self_attn(cfg, shared, x))
 
 
+def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  Under a mesh, a vocabulary-parallel lookup
+    (F0's layout: the table's rows over "model", the tokens over the batch
+    axes): each device looks up the tokens of its batch shard that fall in
+    its rows, zeros elsewhere, and the partial sums over "model" are
+    reduced by the caller's ``constrain``.  DTensor's own strategies for
+    this gather differ between PyTorch releases (an index backward that
+    fails, a masked embedding whose mask mis-shapes on a 2-D mesh)."""
+    mesh = current_mesh()
+    if mesh is None or not is_dtensor(table):
+        return table[tokens]
+    rows = clean_spec(table.shape, (MODEL, None), mesh_axis_sizes(mesh))[0]
+    split = rows is not None
+
+    def lookup(t, ids):
+        start = mesh.get_local_rank(MODEL) * t.shape[0] if split else 0
+        local = ids - start
+        hit = (local >= 0) & (local < t.shape[0])
+        out = t[torch.where(hit, local, 0)]
+        return out * hit[..., None].to(out.dtype)
+
+    shape = (*tokens.shape, table.shape[1])
+    return shard_map(lookup, (pin(table), tokens),
+                     ((MODEL, None), (BATCH, None)),
+                     (((BATCH, None, None), shape),),
+                     partial=(MODEL,) if split else ())
+
+
 def _lm_head(cfg: ModelConfig, params: Dict) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return params["embed"].T
+        return pin(params["embed"]).T
     return params["head"]
 
 
@@ -482,7 +614,7 @@ def decode_step_fn(params: Dict, state: Dict, token: torch.Tensor,
     check_ported(cfg)
     dtype = torch_dtype(cfg.dtype)
     pos = state["pos"]
-    x = params["embed"][token].to(dtype)[:, None]  # (B, 1, d)
+    x = _embed(params["embed"], token).to(dtype)[:, None]  # (B, 1, d)
     for kind, block, i in _layers(cfg, params):
         if kind == "ssm":
             x = _ssm_decode(cfg, block, x, state["ssm"], i)
@@ -511,7 +643,23 @@ def _fill_cache(cfg: ModelConfig, cache_k: torch.Tensor, cache_v: torch.Tensor,
     (B, clen, KVH, hd): the last ``clen`` positions in ring layout for
     sliding-window models, else positions 0..S-1 with zeros after them."""
     s, clen = k.shape[1], cache_k.shape[1]
-    if cfg.sliding_window and s > clen:
+    if is_dtensor(cache_k):
+        # the whole cache's new content, written by one copy_: DTensor has
+        # no strategy for a write into a slice of a dim split over "model"
+        if cfg.sliding_window and s > clen:
+            # torch.roll as two slices (no DTensor strategy rolls)
+            r = s % clen
+            new_k, new_v = (torch.cat([t[:, s - r:], t[:, s - clen:s - r]],
+                                      dim=1) for t in (k, v))
+        elif clen > s:
+            grow = (0, 0, 0, 0, 0, clen - s)
+            new_k, new_v = torch.nn.functional.pad(k, grow), \
+                torch.nn.functional.pad(v, grow)
+        else:
+            new_k, new_v = k, v
+        cache_k.copy_(new_k.to(cache_k.dtype))
+        cache_v.copy_(new_v.to(cache_v.dtype))
+    elif cfg.sliding_window and s > clen:
         # ring layout: position p lives at slot p % clen; after slicing the
         # last clen positions (s-clen .. s-1), original index i holds
         # position s-clen+i, whose slot is (i + s) % clen -> roll by s%clen.
@@ -582,9 +730,15 @@ def prefill_fn(params: Dict, batch: Dict, cfg: ModelConfig,
     if target_len < s:
         raise ValueError(f"cache_len {target_len} < prompt length {s}")
     dtype = torch_dtype(cfg.dtype)
-    x = params["embed"][tokens].to(dtype)
+    x = _embed(params["embed"], tokens).to(dtype)
     state = init_decode_state(cfg, b, target_len, device=x.device, dtype=dtype,
                               conv_dtype=dtype)
+    if is_dtensor(x) and current_mesh() is not None:
+        from repro_torch.parallel.sharding import (decode_state_specs,
+                                                   distribute_tree)
+        mesh = current_mesh()
+        state = distribute_tree(state, decode_state_specs(state, mesh, b),
+                                mesh)
     state["pos"] = s
     cross_src = _cross_source(cfg, params, batch, dtype)
     for kind, block, i in _layers(cfg, params):
@@ -620,9 +774,54 @@ def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
     version on the CPU.  As in JAX, the head is rounded to the working
     dtype and the products are summed in f32.
     """
+    if is_dtensor(hidden):
+        return _sharded_cross_entropy(hidden, head, labels)
     d = hidden.shape[-1]
     return fused_cross_entropy(hidden.reshape(-1, d), head.to(hidden.dtype),
                                labels.reshape(-1))
+
+
+LOSS_CHUNK = 128   # sequence chunk of the CE under a mesh, as JAX's
+
+
+def _sharded_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
+                           labels: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """JAX's ``chunked_cross_entropy`` on DTensors, vocabulary-parallel:
+    the rows over the batch axes, the head's vocabulary over "model" where
+    it divides.  Each device takes the (lse, label logit) of its rows over
+    its slice of the vocabulary from ``fused_ce_shard_stats`` (the
+    streaming kernel on the card, its plain version on the CPU), its
+    labels moved to the slice's start, in JAX's 128-token chunks of the
+    sequence, which bound the plain version's logits; the slices' lse then
+    meet in a logsumexp and their label logits in a sum over "model"."""
+    mesh = current_mesh()
+    b, s, d = hidden.shape
+    split = clean_spec(head.shape, (None, MODEL),
+                       mesh_axis_sizes(mesh))[1] is not None
+    parts = local_size(mesh, MODEL) if split else 1
+
+    def stats(h, w, lab):
+        if split:
+            lab = lab - mesh.get_local_rank(MODEL) * w.shape[1]
+        w = w.to(h.dtype)
+        lse, pick = [], []
+        for c0 in range(0, s, LOSS_CHUNK):
+            lc = lab[:, c0:c0 + LOSS_CHUNK]
+            a, p = fused_ce_shard_stats(
+                h[:, c0:c0 + LOSS_CHUNK].reshape(-1, d), w, lc.reshape(-1))
+            lse.append(a.reshape(lc.shape))
+            pick.append(p.reshape(lc.shape))
+        return torch.cat(lse, 1)[..., None], torch.cat(pick, 1)[..., None]
+
+    out = ((BATCH, None, MODEL if split else None), (b, s, parts))
+    lse, pick = (constrain(t, BATCH, None, None) for t in shard_map(
+        stats, (hidden, head, labels),
+        ((BATCH, None, None), (None, MODEL), (BATCH, None)), (out, out)))
+    mx = lse.detach().amax(dim=-1, keepdim=True)
+    lse = (lse - mx).exp().sum(dim=-1).log() + mx[..., 0]
+    mask = (labels >= 0).float()
+    return ((lse - pick.sum(dim=-1)) * mask).sum(), mask.sum()
 
 
 # each family's unit of the training forward: a layer, for hybrid a group
@@ -673,25 +872,32 @@ def _train_units(cfg: ModelConfig, params: Dict):
     hybrid one per group (its ``attn_every`` Mamba2 layers and the shared
     block, whose weights so get the sum of the gradients of their
     applications), then one per tail layer; for vlm one per group (its
-    ``cross_attn_every`` layers and its cross block).  Returns
-    [(function, block)]."""
+    ``cross_attn_every`` layers and its cross block).  Yields (function,
+    block), each unit's layers taken just before it runs (``_unstack``)."""
     blocks = _unstack(params["blocks"], cfg.num_layers)
     if cfg.arch_type == "audio":
         cross = _unstack(params["cross"], cfg.num_layers)
-        return [(_audio_block, pair) for pair in zip(blocks, cross)]
+        for i in range(cfg.num_layers):
+            yield _audio_block, (blocks[i], cross[i])
+        return
     if cfg.arch_type not in ("hybrid", "vlm"):
-        return [(TRAINED[cfg.arch_type], block) for block in blocks]
+        for block in blocks:
+            yield TRAINED[cfg.arch_type], block
+        return
     n, per, tail = group_layout(cfg)
     if cfg.arch_type == "vlm":
         if tail:
             raise ValueError(f"{cfg.name}: vlm layers must divide "
                              f"cross_attn_every")
         cross = _unstack(params["cross"], n)
-        return [(_vlm_group, (blocks[g * per:(g + 1) * per], cross[g]))
-                for g in range(n)]
-    groups = [(_hybrid_group, (blocks[g * per:(g + 1) * per],
-                               params["shared_attn"])) for g in range(n)]
-    return groups + [(_ssm_block, block) for block in blocks[n * per:]]
+        for g in range(n):
+            yield _vlm_group, (blocks[g * per:(g + 1) * per], cross[g])
+        return
+    for g in range(n):
+        yield _hybrid_group, (blocks[g * per:(g + 1) * per],
+                              params["shared_attn"])
+    for i in range(n * per, cfg.num_layers):
+        yield _ssm_block, blocks[i]
 
 
 def model_forward(params: Dict, batch: Dict, cfg: ModelConfig,
@@ -711,7 +917,8 @@ def model_forward(params: Dict, batch: Dict, cfg: ModelConfig,
     check_trainable(cfg)
     run = _remat_wrapper(remat, remat_policy)
     dtype = torch_dtype(cfg.dtype)
-    x = params["embed"].to(dtype)[batch["tokens"]]
+    x = constrain(_embed(params["embed"].to(dtype), batch["tokens"]), BATCH,
+                  None, None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cross_src = _cross_source(cfg, params, batch, dtype)
     for fn, block in _train_units(cfg, params):

@@ -6,6 +6,8 @@ intra-chunk step is the hand-written kernel behind
 ``kernels.ssd_scan`` (the JAX package's model calls the pure-jnp scan,
 the drop-in twin of its Pallas kernel).  Decode is the O(1) recurrent
 update on the (B, H, P, N) state, plain torch as it is plain jnp in JAX.
+Under a mesh the scan runs on each device's (batch, head) shard
+(``_sharded_ssd``).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels.ssd_scan import ssd_chunked
 from repro_torch.models.common import dense_init, rmsnorm
+from repro_torch.parallel.constraints import BATCH, MODEL, constrain, shard_map
 
 # leaves kept in f32 whatever the model's dtype, as JAX keeps and uses them
 F32_LEAVES = ("A_log", "D", "dt_bias")
@@ -76,17 +79,25 @@ def ssm_prefill(params: Dict, xin: torch.Tensor, cfg: SSMConfig
     # causal depthwise conv over the (x, B, C) channels: a Python sum of
     # the taps in the working dtype, in JAX's order
     w = params["conv_w"].to(dtype)                          # (W, ch)
-    xp = F.pad(xbc, (0, 0, cfg.conv_width - 1, 0))
+    # the W-1 zeros in front by a concatenation, not F.pad: the same values,
+    # and a DTensor split over the channels concatenates in every PyTorch
+    zeros = torch.zeros((bsz, cfg.conv_width - 1, xbc.shape[-1]),
+                        device=xbc.device, dtype=xbc.dtype)
+    xp = torch.cat([zeros, xbc], dim=1)
     conv = sum(xp[:, i:i + l] * w[i] for i in range(cfg.conv_width))
     conv = F.silu(conv + params["conv_b"].to(dtype))
 
-    xs = conv[..., :d_in].unflatten(-1, (nheads, cfg.head_dim))
+    xs = constrain(conv[..., :d_in].unflatten(-1, (nheads, cfg.head_dim)),
+                   BATCH, None, MODEL, None)
     bmat = conv[..., d_in:d_in + n]
     cmat = conv[..., d_in + n:]
 
-    dt = F.softplus(dt.float() + params["dt_bias"])
+    # dt over heads, as dt_bias is: DTensor (some releases) cannot add a
+    # head-split bias to the column slice of in_proj's output otherwise
+    dt = F.softplus(constrain(dt.float(), BATCH, None, MODEL)
+                    + params["dt_bias"])
     a = -torch.exp(params["A_log"])
-    y, final = ssd_chunked(xs, dt, a, bmat, cmat, cfg.chunk_size)
+    y, final = _sharded_ssd(xs, dt, a, bmat, cmat, cfg.chunk_size)
     # D x in f32 on y already rounded to x's dtype, as JAX does
     y = y + params["D"][:, None] * xs.float()
     y = y.reshape(bsz, l, d_in).to(dtype)
@@ -95,6 +106,23 @@ def ssm_prefill(params: Dict, xin: torch.Tensor, cfg: SSMConfig
     y = rmsnorm(y, params["norm_scale"])
     out = y @ params["out_proj"].to(dtype)
     return out, {"conv": xp[:, l:], "ssm": final}
+
+
+def _sharded_ssd(xs, dt, a, bmat, cmat, chunk: int):
+    """``ssd_chunked`` on each device's (batch, head) shard under a mesh:
+    heads are independent and B, C are shared by them, so x (B, L, H, P),
+    dt (B, L, H) and A (H) go over "model" on H and B, C (B, L, N) are
+    replicated over it (no DTensor strategy splits the scan's cumulative
+    sums; JAX pins x over heads likewise).  Without a mesh it is
+    ``ssd_chunked``."""
+    bsz, _, h, p = xs.shape
+    heads = (BATCH, None, MODEL)
+    return shard_map(
+        lambda x_, dt_, a_, b_, c_: ssd_chunked(x_, dt_, a_, b_, c_, chunk),
+        (xs, dt, a, bmat, cmat),
+        ((BATCH, None, MODEL, None), heads, (MODEL,), (BATCH, None, None),
+         (BATCH, None, None)),
+        (0, ((BATCH, MODEL, None, None), (bsz, h, p, bmat.shape[-1]))))
 
 
 def ssm_forward(params: Dict, xin: torch.Tensor, cfg: SSMConfig

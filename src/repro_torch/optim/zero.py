@@ -3,12 +3,16 @@
 
 A job whose optimizer state is sharded ``shard_factor``-way over a DP
 degree of k x shard_factor can be time-sliced at most k-way: only replicas
-of the same ZeRO shard are spliced together.  The partition specs of the
-JAX module belong to the multi-GPU slice (ROADMAP M9).
+of the same ZeRO shard are spliced together.  Here are (a) the placement
+rule the elastic runtime enforces and (b) the specs the launcher builds,
+tuples of mesh-axis names per tensor dim (``parallel/sharding.py``), with
+the host-side slice of one shard.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Any, List, Tuple
+
+from repro_torch.parallel.sharding import tree_map_with_path
 
 
 def shard_group(rank: int, dp_degree: int, shard_factor: int) -> int:
@@ -42,3 +46,41 @@ def validate_partial_sharding(dp_degree: int, shard_factor: int,
             f"cannot splice {target_splice}-way: ZeRO shard factor "
             f"{shard_factor} with DP={dp_degree} supports at most {k}-way "
             f"time-slicing (paper §5.4 partial sharding)")
+
+
+def partial_shard_specs(params: Any, shard_factor: int,
+                        data_axis: str = "data") -> Any:
+    """Specs sharding optimizer state over a sub-slice of the data axis.
+    shard_factor=1 -> fully replicated optimizer state (pure DP);
+    shard_factor=dp -> fully sharded (classic ZeRO-1).
+
+    Each tensor's largest axis divisible by the factor (the last of equal
+    ones) goes over the data axis."""
+    def spec_for(_path, leaf) -> Tuple:
+        if shard_factor == 1 or not hasattr(leaf, "shape") \
+                or len(leaf.shape) == 0:
+            return ()
+        shape = tuple(leaf.shape)
+        cands = [(dim, ax) for ax, dim in enumerate(shape)
+                 if dim % shard_factor == 0]
+        if not cands:
+            return ()
+        _, ax = max(cands)
+        spec = [None] * len(shape)
+        spec[ax] = data_axis
+        return tuple(spec)
+
+    return tree_map_with_path(spec_for, params)
+
+
+def shard_slice(leaf, spec: Tuple, shard_idx: int, shard_factor: int):
+    """Host-side slice of a leaf for a given ZeRO shard (checkpoint
+    layout): the first sharded axis of ``spec`` cut into ``shard_factor``
+    equal parts."""
+    for ax, name in enumerate(spec):
+        if name is not None:
+            n = leaf.shape[ax] // shard_factor
+            sl = [slice(None)] * leaf.ndim
+            sl[ax] = slice(shard_idx * n, (shard_idx + 1) * n)
+            return leaf[tuple(sl)]
+    return leaf

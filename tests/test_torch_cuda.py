@@ -21,6 +21,7 @@ from repro_torch.kernels.checksum.ops import _as_words, fingerprint
 from repro_torch.kernels.checksum.ref import fingerprint_u32_ref
 from repro_torch.kernels.fused_ce import fused_cross_entropy
 from repro_torch.kernels.fused_ce.ce import fused_ce_stats, tile, vocab_splits
+from repro_torch.kernels.fused_ce.ops import fused_ce_shard_stats
 from repro_torch.kernels.fused_ce.ref import (cross_entropy_ref,
                                               fused_ce_stats_ref)
 from repro_torch.kernels.ssd_scan import ssd_chunked
@@ -366,6 +367,29 @@ def test_fused_cross_entropy_gradients_on_card(dtype, tol):
 
 
 @pytest.mark.cuda
+def test_fused_ce_shard_stats_on_card():
+    """One vocabulary slice's (lse, label logit) and their gradients: the
+    kernel forward (one launch) against the same function on CPU copies
+    (its plain version), f32, 1e-5 of the largest gradient entry."""
+    dev = _card()
+    h, w, lab = _ce_inputs(dev, 1000, 256, 2048, torch.float32, seed=2)
+    head = w[:, 1024:]
+    lab = lab - 1024
+    got, want = [], []
+    for out, dv in ((got, dev), (want, torch.device("cpu"))):
+        hh = h.detach().to(dv).requires_grad_()
+        ww = head.detach().to(dv).requires_grad_()
+        before = fused_ce_stats.launches
+        lse, pick = fused_ce_shard_stats(hh, ww, lab.to(dv))
+        assert fused_ce_stats.launches == before + (dv.type == "cuda")
+        (lse.square().sum() - 3 * pick.sum()).backward()
+        out += [t.detach().cpu() for t in (lse, pick, hh.grad, ww.grad)]
+    for a, b in zip(got, want):
+        scale = b.abs().max()
+        torch.testing.assert_close(a / scale, b / scale, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,s,h,d,w,dtype,tol", [
     (2, 512, 4, 128, 0, torch.float32, 1e-5),
     (1, 300, 2, 64, 96, torch.float32, 1e-5),
@@ -704,3 +728,79 @@ def test_fingerprint_u32_unaligned_views_and_edges_on_card():
         fingerprint_u32(torch.zeros(8, dtype=torch.int16, device=dev))
     with pytest.raises(ValueError, match="contiguous"):
         fingerprint_u32(torch.zeros(8, 8, device=dev).T)
+
+
+def _donate_runs(arch, steps, physical=(4, 2)):
+    """Losses and final states of ``steps`` steps of the arch's smoke config
+    on the card, functional and donated, from copies of one state (a
+    resize from ``physical[0]`` to ``physical[1]`` after the first
+    three)."""
+    from repro_torch.core.elastic import ElasticRuntime
+    from repro_torch.utils.tree import tree_map
+
+    card = _card()
+    cfg = get_smoke_config(arch)
+    tcfg = TrainConfig(total_steps=steps, warmup_steps=2, learning_rate=1e-3)
+    state = init_train_state(cfg, tcfg, device=card)
+    out = {}
+    for donate in (False, True):
+        rt = ElasticRuntime(cfg, tcfg, 4, physical[0], 8, 128,
+                            state=tree_map(torch.clone, state), device=card,
+                            donate=donate)
+        hist = rt.run_steps(min(steps, 3))
+        if steps > 3:
+            rt.resize(physical[1])
+            hist += rt.run_steps(steps - 3)
+        out[donate] = ([h["loss"] for h in hist],
+                       train_state_to_numpy(rt.state))
+    return out
+
+
+@pytest.mark.cuda
+def test_donated_step_equals_functional_on_card():
+    """The ``donate`` phase of chip_smoke.py: olmo-1b smoke, three steps in
+    place against three functional ones: losses, params, m and v equal to
+    the bit (the same elementwise arithmetic; the gradients laid out alike
+    on both paths, so the norm sums in the same order)."""
+    from repro_torch.utils.tree import tree_leaves
+
+    out = _donate_runs("olmo-1b", 3)
+    assert out[True][0] == out[False][0]
+    for a, b in zip(tree_leaves(out[True][1]), tree_leaves(out[False][1])):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_donated_granite_step_on_card():
+    """granite-moe smoke, five steps with a resize, donated against
+    functional: its ``index_add_`` sums with atomics, so the two may differ
+    in the last bits; losses to 1e-4 relative (phase 9's bound of the
+    kernel path against the plain one)."""
+    out = _donate_runs("granite-moe-3b-a800m", 5)
+    np.testing.assert_allclose(out[True][0], out[False][0], rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_donated_update_transient_memory_on_card():
+    """One donated update: the peak above what was allocated before it is
+    under two axis-0 slices of the largest leaf (a (32, 40, 1536, 512)
+    expert stack's layer, 126 MB), where the functional update makes a new
+    params, m and v (three such leaves, 12 GB)."""
+    from repro_torch.optim.adamw import adamw_init, adamw_update_
+    from repro_torch.utils.tree import tree_map
+
+    card = _card()
+    gen = torch.Generator(device=card).manual_seed(0)
+    params = {"wi": torch.randn(32, 40, 1536, 512, device=card,
+                                generator=gen),
+              "embed": torch.randn(49155, 1536, device=card, generator=gen)}
+    grads = tree_map(lambda p: 1e-3 * torch.randn(p.shape, device=card,
+                                                  generator=gen), params)
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    adamw_update_(params, grads, opt, 1e-3, TrainConfig())
+    torch.cuda.synchronize()
+    transient = torch.cuda.max_memory_allocated() - before
+    assert transient < 2 * params["wi"][0].numel() * 4, transient

@@ -5,7 +5,8 @@ package, on the CPU.
   ``fused_ce_stats`` (interpret mode) and the JAX ``fused_cross_entropy``
   at the shapes of ``tests/test_kernels.py`` (rtol 1e-5, its bound);
 - the CE gradients in hidden and head against ``jax.grad`` of the JAX
-  model's ``chunked_cross_entropy``;
+  model's ``chunked_cross_entropy``, also with the CE split over
+  vocabulary slices (``fused_ce_shard_stats``, the CE under a mesh);
 - the attention autograd function's dq, dk, dv against ``jax.grad`` of
   ``blockwise_attention``.
 
@@ -24,6 +25,7 @@ from repro.models.attention import blockwise_attention
 from repro.models.model import chunked_cross_entropy as jax_chunked_ce
 from repro_torch.kernels.fused_ce import fused_cross_entropy
 from repro_torch.kernels.fused_ce.ce import fused_ce_stats, vocab_splits
+from repro_torch.kernels.fused_ce.ops import fused_ce_shard_stats
 from repro_torch.kernels.fused_ce.ref import (cross_entropy_ref,
                                               fused_ce_stats_ref)
 from repro_torch.kernels.swa_attention import swa_attention
@@ -128,6 +130,45 @@ def test_ce_gradients_match_jax_grad(b, s, d, v, dtype, tol):
         scale = np.abs(want).max()
         np.testing.assert_allclose(got.float().numpy() / scale, want / scale,
                                    rtol=0, atol=tol)
+
+
+def _combined_shard_ce(h, w, lab, parts):
+    """The CE of ``fused_ce_shard_stats`` over ``parts`` equal vocabulary
+    slices, each with its labels moved to its start, the slices' lse met
+    in a logsumexp and their label logits in a sum, as the model's CE
+    under a mesh combines them over "model"."""
+    v = w.shape[1] // parts
+    stats = [fused_ce_shard_stats(h, w[:, i * v:(i + 1) * v], lab - i * v)
+             for i in range(parts)]
+    lse = torch.logsumexp(torch.stack([a for a, _ in stats], -1), -1)
+    pick = sum(p for _, p in stats)
+    mask = (lab >= 0).float()
+    return ((lse - pick) * mask).sum()
+
+
+@pytest.mark.parametrize("parts", [1, 2, 4])
+def test_shard_stats_combine_to_jax_ce(parts):
+    """Vocabulary slices' (lse, label logit) combined equal JAX's
+    ``chunked_cross_entropy``, loss and gradients in hidden and head
+    (f32: the same arithmetic in another order, 1e-5 as above)."""
+    b, s, d, v = 2, 64, 32, 512
+    rng = np.random.default_rng(parts)
+    h = rng.standard_normal((b, s, d), dtype=np.float32)
+    w = (0.05 * rng.standard_normal((d, v))).astype(np.float32)
+    lab = rng.integers(-1, v, (b, s), dtype=np.int32)
+    ht, wt = _t(h).requires_grad_(), _t(w).requires_grad_()
+    loss = _combined_shard_ce(ht.reshape(-1, d), wt, _t(lab).reshape(-1),
+                              parts)
+    loss.backward()
+    jl, (jgh, jgw) = jax.value_and_grad(
+        lambda hh, ww: jax_chunked_ce(hh, ww, jnp.asarray(lab))[0],
+        argnums=(0, 1))(jnp.asarray(h), jnp.asarray(w))
+    np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-5)
+    for got, want in ((ht.grad, jgh), (wt.grad, jgw)):
+        want = np.asarray(want, np.float32)
+        scale = np.abs(want).max()
+        np.testing.assert_allclose(got.numpy() / scale, want / scale,
+                                   rtol=0, atol=1e-5)
 
 
 def test_ce_gradient_reads_a_transposed_head():

@@ -103,7 +103,8 @@ def test_hybrid_remat_checkpoints_each_group_once():
     group and tail scans' steps: 3 units, not 5 + 2."""
     cfg = dataclasses.replace(get_smoke_config("zamba2-1.2b"),
                               dtype="float32", num_layers=5)
-    units = model_lib._train_units(cfg, init_params(cfg, 0, device="cpu"))
+    units = list(model_lib._train_units(cfg,
+                                        init_params(cfg, 0, device="cpu")))
     assert [fn.__name__ for fn, _ in units] == [
         "_hybrid_group", "_hybrid_group", "_ssm_block"]
     (blocks, shared), _ = units[0][1], units[1][1]

@@ -17,8 +17,12 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    training shapes (H 32, D 64, window 4096 = S), granite-moe's serving
    and training ones (H 24, D 64), h2o-danube-3-4b's prefill (B 2, S
    6144, H 32, D 120, window 4096 < S), llama-3.2-vision-11b's prefill
-   (H 32, D 128) and whisper-base's prefill and training ones (H 8, D 64);
-   then, at the shapes of ``SWA_TIMED``, time the kernel (back to back,
+   (H 32, D 128), whisper-base's prefill and training ones (H 8, D 64)
+   and llama-3.2-vision-11b's training ones (B 4 and 2, S 4096, H 32, D
+   128); ``torch.library.opcheck`` of the op ``repro_torch::swa_flash`` on
+   CUDA inputs (schema; its fake implementation against the kernel's
+   outputs), as phases 2b, 2c and 2d do for their ops; then, at the shapes
+   of ``SWA_TIMED``, time the kernel (back to back,
    and with the L2 flushed before each launch), the plain version and
    PyTorch's ``scaled_dot_product_attention`` (the yardstick, with the
    window as a boolean mask where it is shorter than S; the port never
@@ -41,8 +45,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    768, V 50280), phase 7's smoke shapes (d 256, V 512, bf16), a ragged
    f32 case, zamba2-1.2b's (d 2048, V 32000, an untied head read in place)
    granite-moe's (d 1536, V 49155, an untied head the wrapper copies
-   for TMA: 1 copy a call, asserted) and whisper-base's (d 512, V 51865,
-   copied likewise); compare the
+   for TMA: 1 copy a call, asserted), whisper-base's (d 512, V 51865,
+   copied likewise) and llama-3.2-vision-11b's (d 4096, V 128256, an
+   untied head read in place); compare the
    (sum, count) of ``fused_cross_entropy`` with the full-logits plain CE;
    time the kernel (back to back, and with the L2 flushed before each
    launch) and the plain version beside the kernel's bound, with cuBLAS's
@@ -160,6 +165,15 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    recomputation) and 1 ``fused_ce_stats`` per slice, the (512, 51865)
    head copied for TMA once per slice.
 10b. f32, card against CPU: one training step of the whisper smoke config.
+12. After 10b, train llama-3.2-vision-11b at full width and 5 of its 40
+   layers (one group of 5 layers with its cross block, image embeddings
+   drawn once by the runtime, cross gates set) with the donated step, the
+   path ``vlm-train``, on phase 4's schedule and with its checks: 10
+   ``swa_flash`` (5 layers, again in the group's remat) and 1
+   ``fused_ce_stats`` per slice, the head read in place; splice 1 against
+   splice 2 at the same depth, donated.
+12b. f32, card against CPU: one training step of the llama-vision smoke
+   config.
 11. Run a seeded fleet trace (failures, the serving tier, scaling curves)
    through the port's ``FleetSimulator``, the path ``fleet-sim``: numpy on
    the host, no kernel; it prints the digest of every decision (the JAX
@@ -174,8 +188,11 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    or 2 x 16 x 16 meshes, traced on fake tensors in a fake world; their
    roofline terms (data-sheet models), bytes per device and trace seconds;
    and granite-moe train_4k on one device, donated, whose state bytes must
-   be within 1% of phase 9's on the card.
-12. Print the ``kernels`` JSON line, the card's name and power limit, and as
+   be within 1% of phase 9's on the card and whose ``swa_flash`` ops a
+   slice must equal phase 9's launches a slice.  The kernels run there as
+   their ``torch.library`` ops' fake implementations; each pair's kernel
+   ops are printed.
+13. Print the ``kernels`` JSON line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 It imports no JAX and nothing of the JAX package ``repro``.
@@ -233,6 +250,10 @@ KERNEL_CASES = [
     (4, 512, 8, 64, 0, "bfloat16"),
     (4, 4096, 8, 64, 0, "bfloat16"),
     (2, 4096, 8, 64, 0, "bfloat16"),
+    # llama-3.2-vision-11b training (``VLM_TRAIN_PATH``), splice 1 and 2:
+    # 32 heads of 128, the 8 KV heads repeated
+    (4, 4096, 32, 128, 0, "bfloat16"),
+    (2, 4096, 32, 128, 0, "bfloat16"),
 ]
 # timed: (case, key suffix in the kernels line, iterations)
 SWA_TIMED = [(KERNEL_CASES[0], "", 200), (KERNEL_CASES[4], "_train", 20),
@@ -242,7 +263,8 @@ SWA_TIMED = [(KERNEL_CASES[0], "", 200), (KERNEL_CASES[4], "_train", 20),
              (KERNEL_CASES[18], "_h2o", 20),
              (KERNEL_CASES[19], "_llama_vision", 200),
              (KERNEL_CASES[20], "_whisper", 200),
-             (KERNEL_CASES[21], "_whisper_train", 20)]
+             (KERNEL_CASES[21], "_whisper_train", 20),
+             (KERNEL_CASES[23], "_vlm_train", 20)]
 L2_FLUSH_BYTES = 64 << 20  # written between calls: more than the 50 MB L2
 # The kernel and the plain version both accumulate in f32 and differ in
 # the order of summation: 2e-5 at f32 (tests/test_kernels.py's bound).  At
@@ -308,12 +330,17 @@ CE_CASES = [
     # copied for TMA as granite's (one copy per call)
     (16384, 512, 51865, "bfloat16", False),
     (8192, 512, 51865, "bfloat16", False),
+    # llama-3.2-vision-11b training, splice 1 and 2: the untied (4096,
+    # 128256) head, read in place
+    (16384, 4096, 128256, "bfloat16", False),
+    (8192, 4096, 128256, "bfloat16", False),
 ]
 # timed: (case, key suffix in the kernels line)
 CE_TIMED = [(CE_CASES[0], ""), (CE_CASES[1], "_t8192"),
             (CE_CASES[3], "_t16384_d768"), (CE_CASES[4], "_t8192_d768"),
             (CE_CASES[7], "_zamba2"), (CE_CASES[9], "_granite"),
-            (CE_CASES[11], "_whisper"), (CE_CASES[12], "_whisper_t8192")]
+            (CE_CASES[11], "_whisper"), (CE_CASES[12], "_whisper_t8192"),
+            (CE_CASES[13], "_vlm")]
 # Both sum the same f32 products (exact for bf16 operands) in another
 # order, over d <= 2048 terms; logits are about 1 and lse about 11
 CE_TOL = dict(rtol=1e-5, atol=1e-4)
@@ -366,6 +393,7 @@ SSM_TRAIN_PATH = "mamba2-130m-train"
 HYBRID_TRAIN_PATH = "zamba2-1.2b-train"
 MOE_TRAIN_PATH = "granite-moe-train"
 AUDIO_TRAIN_PATH = "whisper-base-train"
+VLM_TRAIN_PATH = "vlm-train"
 # granite-moe-3b-a800m trains at all 32 layers (3.37 B parameters) with
 # the donated step (``donate``): params, m and v updated in place and one
 # gradient sum, 16 bytes a parameter (54 GB), where the functional step
@@ -383,7 +411,8 @@ AUDIO_TRAIN_PATH = "whisper-base-train"
 # config's), ``copies_per_slice`` the operands a wrapper copies for TMA
 # on each slice, ``check_layers`` and ``check_dtype`` the depth and dtype
 # of the splice check (zamba2: one group and a tail layer, so the shared
-# block runs).  zamba2's and granite's bounds were set before their first
+# block runs; llama-vision: one group), ``check_donate`` whether it
+# donates.  zamba2's and granite's bounds were set before their first
 # run on a card: granite's first loss adds the aux loss, 0.01 E sum_e f_e
 # p_e with E = 48 padded experts, 0.012 a layer were the 40 real ones
 # used evenly.  whisper-base's were set before its first run on a card
@@ -427,6 +456,31 @@ TRAIN_SPECS = {
                            tol=dict(loss=1e-4, grad_norm=1e-3),
                            f32_firm="the gradients agree to 1e-3 relative",
                            gates=True),
+    # llama-3.2-vision-11b at full width and 5 of its 40 layers (one group
+    # of 5 with its cross block, 2,188,378,112 parameters) with the donated
+    # step, 16 bytes a parameter (35.0 GB; the whole model needs 162 GB):
+    # 10 ``swa_flash`` (5 layers, again in the group's remat) and 1
+    # ``fused_ce_stats`` per slice, the (4096, 128256) head read in place.
+    # 10 layers (two groups, 53.1 GB) do not fit: a group's recompute at
+    # 16,384 tokens holds about 36 GB beside the state and the gradient
+    # sum (the planner's trace of that step on one device, ``dryrun
+    # --layers 10 --global-batch 4 --mesh-shape 1,1 --donate``: 89.0 GB),
+    # and such a run on an H100 ran out of memory in the second group's
+    # cross block.  Its bounds were set
+    # before its first run on a card: ln V + sigma^2 / 2 = 11.762 + 0.819 =
+    # 12.581 at d 4096, the gates moving it by a few hundredths at most.
+    # Its splice check runs the same group donated, each splice factor from
+    # its own state made from the seed: two copies of one state would not
+    # fit beside a step.
+    VLM_TRAIN_PATH: dict(arch="llama-3.2-vision-11b", phase="12", layers=5,
+                         donate=True,
+                         per_slice={"swa_flash": 10, "fused_ce_stats": 1},
+                         leaves=19, named=("cross/gate", "cross/attn/wk",
+                                           "projector", "head"),
+                         first_loss=(12.2, 12.95),
+                         tol=dict(loss=1e-4, grad_norm=1e-3),
+                         f32_firm="the gradients agree to 1e-3 relative",
+                         gates=True, check_layers=5, check_donate=True),
     SSM_TRAIN_PATH: dict(arch="mamba2-130m", phase="6",
                          per_slice={"ssd_intra_chunk": 48,
                                     "fused_ce_stats": 1},
@@ -454,11 +508,12 @@ FP_CASES = [
     ((16, 2048, 8192), "float32"),   # olmo-1b's opt/m/blocks/mlp/wg
 ]
 FP_TIMED = [(1 << 20,), (16, 2048, 8192)]
-# integer instructions per word of the digest (csrc/fingerprint_u32.cu)
-FP_OPS_PER_WORD = 10
 MIGRATE_PATH = "olmo-1b-migrate"
 # torch.cuda.memory_allocated() after each training path's setup: its state
 STATE_BYTES = {}
+# each training path's largest step peak (torch.cuda.max_memory_allocated)
+# at each splice factor
+PEAK_BYTES = {}
 
 
 def card_line() -> str:
@@ -530,42 +585,51 @@ def _bound(t_bytes: float, t_ops: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def causal_pairs(s: int, window: int) -> int:
-    """(query, key) pairs the causal (windowed) mask keeps."""
-    if window <= 0:
-        return s * (s + 1) // 2
-    return sum(min(i + 1, window) for i in range(s))
+def _dtype_bound(torch, cost, dtype):
+    """(ms, "bytes" | "operations") of a kernel's ``KernelCost``: its bytes
+    over the HBM rate against its flops over the dense peak of ``dtype``
+    (H100 SXM data sheet)."""
+    from repro_torch.utils import constants
+
+    return _bound(cost.bytes / constants.DATASHEET_HBM_BANDWIDTH,
+                  cost.flops / _peak_flops(torch, dtype))
 
 
 def attention_bound(torch, b, s, h, d, window, dtype):
-    """Least time for the function on an H100 SXM (data sheet): q, k, v
-    read once and o written once over the HBM rate, against 2 products of
-    2 flops per kept (query, key) pair and head dim over the dense peak of
-    the operand type.  Returns (ms, "bytes" | "operations")."""
-    from repro_torch.utils import constants
+    """Least time for ``swa_flash`` on an H100 SXM (data sheet), from the
+    op's formula (``swa_attention/ops.py::swa_flash_cost``): q, k, v read
+    once and o written once, against 2 products of 2 flops per kept
+    (query, key) pair and head dim."""
+    from repro_torch.kernels.swa_attention.ops import swa_flash_cost
 
     elsize = torch.empty((), dtype=dtype).element_size()
-    t_bytes = 4 * b * s * h * d * elsize / constants.DATASHEET_HBM_BANDWIDTH
-    t_ops = 4 * d * causal_pairs(s, window) * b * h / _peak_flops(torch, dtype)
-    return _bound(t_bytes, t_ops)
+    return _dtype_bound(torch, swa_flash_cost(b, s, h, d, window, elsize),
+                        dtype)
 
 
 def ssd_bound(torch, bc, q, h, p, n, dtype):
-    """Least time for ``ssd_intra_chunk`` on an H100 SXM (data sheet): x, b,
-    c (``dtype``), dt and a (f32) read once and y, states and cum (f32)
-    written once over the HBM rate, against its products over the dense
-    peak of the operand type: C B^T once per chunk over the causal pairs,
-    M x over the causal pairs per head, x^T (w B) in full per head.
-    Returns (ms, "bytes" | "operations")."""
-    from repro_torch.utils import constants
+    """Least time for ``ssd_intra_chunk`` on an H100 SXM (data sheet), from
+    the op's formula (``ssd_scan/ops.py::ssd_intra_chunk_cost``)."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_intra_chunk_cost
 
     elsize = torch.empty((), dtype=dtype).element_size()
-    read = elsize * bc * q * (h * p + 2 * n) + 4 * (bc * q * h + h)
-    written = 4 * (bc * q * h * p + bc * h * p * n + bc * q * h)
-    t_bytes = (read + written) / constants.DATASHEET_HBM_BANDWIDTH
-    pairs = q * (q + 1) // 2
-    flops = 2 * bc * (n * pairs + h * p * pairs + h * q * p * n)
-    return _bound(t_bytes, flops / _peak_flops(torch, dtype))
+    return _dtype_bound(torch, ssd_intra_chunk_cost(bc, q, h, p, n, elsize),
+                        dtype)
+
+
+def _opcheck(torch, name, args):
+    """``torch.library.opcheck`` of ``repro_torch::<name>`` on CUDA inputs:
+    its schema, and its fake implementation's outputs against the kernel's
+    (shapes, dtypes, strides).  Raises on a failure.  Its launches are
+    checks, outside every path's count."""
+    op = getattr(torch.ops.repro_torch, name).default
+    result = torch.library.opcheck(
+        op, args, test_utils=("test_schema", "test_faketensor"))
+    shapes = [tuple(a.shape) if hasattr(a, "shape") else a for a in args]
+    print(f"opcheck repro_torch::{name} on CUDA inputs {shapes}: {result}",
+          flush=True)
+    if set(result.values()) != {"SUCCESS"}:
+        raise AssertionError(f"opcheck of {name}: {result}")
 
 
 def phase_kernel(torch, swa_attention, swa_attention_ref):
@@ -592,6 +656,10 @@ def phase_kernel(torch, swa_attention, swa_attention_ref):
               f"atol={tol['atol']!r}", flush=True)
         if main_err is None:
             main_err = err
+    b, s, h, d, w, dname = KERNEL_CASES[0]
+    _opcheck(torch, "swa_flash", (*(
+        torch.randn(b, s, h, d, generator=gen, device=dev)
+        .to(getattr(torch, dname)) for _ in range(3)), w))
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     stats = dict(max_abs_err=main_err)
@@ -675,6 +743,9 @@ def phase_ssd_kernel(torch, ssd_intra_chunk, ssd_chunked, ref):
               f"{errs[2]!r}, within rtol=atol=1e-4", flush=True)
         if main_err is None:
             main_err = max(errs)
+    bc, q, h, p, n, dname = SSD_CASES[0]
+    _opcheck(torch, "ssd_intra_chunk", _ssd_inputs(
+        torch, gen, bc, q, h, p, n, getattr(torch, dname)))
 
     # the whole wrapper at a ragged length: against the plain chunked scan
     # (1e-4), the O(L) recurrence (1e-3, tests/test_kernels.py) and its own
@@ -731,16 +802,14 @@ def _time_ssd(torch, gen, ssd_intra_chunk, ref, case):
 
 
 def ce_bound(torch, t, d, v, dtype):
-    """Least time for ``fused_ce_stats`` on an H100 SXM (data sheet):
-    hidden (T, d), head (d, V) and int32 labels read once and lse, pick
-    (f32) written once over the HBM rate, against 2 T d V flops over the
-    dense peak of the operand type.  Returns (ms, "bytes" | "operations")."""
-    from repro_torch.utils import constants
+    """Least time for ``fused_ce_stats`` on an H100 SXM (data sheet), from
+    the op's formula (``fused_ce/ops.py::fused_ce_stats_cost``): hidden,
+    head and int32 labels read once, lse and pick written once, against
+    2 T d V flops."""
+    from repro_torch.kernels.fused_ce.ops import fused_ce_stats_cost
 
     elsize = torch.empty((), dtype=dtype).element_size()
-    moved = elsize * (t * d + d * v) + 4 * t + 8 * t
-    return _bound(moved / constants.DATASHEET_HBM_BANDWIDTH,
-                  2 * t * d * v / _peak_flops(torch, dtype))
+    return _dtype_bound(torch, fused_ce_stats_cost(t, d, v, elsize), dtype)
 
 
 def _ce_inputs(torch, gen, t, d, v, dtype, tied):
@@ -755,15 +824,18 @@ def _ce_inputs(torch, gen, t, d, v, dtype, tied):
     return h, w, lab
 
 
-def fingerprint_bound(n_words: int, padded: int):
-    """Least time for ``fingerprint_u32`` on an H100 SXM: the words read
+def fingerprint_bound(n_words: int):
+    """Least time for ``fingerprint_u32`` on an H100 SXM, from the op's
+    formula (``checksum/ops.py::fingerprint_u32_cost``): the words read
     once and the 16-byte digest written once over the HBM rate, against
-    ``FP_OPS_PER_WORD`` 32-bit integer instructions per padded word over
-    the integer multiply-add rate.  Returns (ms, "bytes" | "operations")."""
+    its 32-bit integer instructions over the integer multiply-add rate.
+    Returns (ms, "bytes" | "operations")."""
+    from repro_torch.kernels.checksum.ops import fingerprint_u32_cost
     from repro_torch.utils import constants
 
-    return _bound((4 * n_words + 16) / constants.DATASHEET_HBM_BANDWIDTH,
-                  FP_OPS_PER_WORD * padded / constants.DATASHEET_INT32_OPS)
+    cost = fingerprint_u32_cost(n_words)
+    return _bound(cost.bytes / constants.DATASHEET_HBM_BANDWIDTH,
+                  cost.int_ops / constants.DATASHEET_INT32_OPS)
 
 
 def _fp_input(torch, gen, shape, dname):
@@ -806,6 +878,9 @@ def phase_fingerprint_kernel(torch, fingerprint_u32, fp_ops, fp_ref):
             # kernel takes its scalar loads
             worst = max(worst, check(x[1:], f"{shape} {dname} [1:] view"))
         del x
+    shape, dname = FP_CASES[0]
+    _opcheck(torch, "fingerprint_u32",
+             (fp_ops._flat_words(_fp_input(torch, gen, shape, dname)),))
     torch.cuda.empty_cache()
 
     times = {}
@@ -820,7 +895,7 @@ def phase_fingerprint_kernel(torch, fingerprint_u32, fp_ops, fp_ref):
                            max(2, iters // 20), 1)
         sum_ms = time_ms(torch, lambda: words.view(torch.int32).sum(), iters)
         kernel_ms_2 = time_ms(torch, lambda: fp_ops.fingerprint(x), iters)
-        bound_ms, bound_by = fingerprint_bound(n, padded.numel())
+        bound_ms, bound_by = fingerprint_bound(n)
         print(f"times at {shape} f32 ({4 * n} bytes; mean of back-to-back "
               f"launches): kernel {kernel_ms!r} ms then {kernel_ms_2!r} ms "
               f"({4 * n / (kernel_ms / 1e3) / 1e12!r} TB/s), plain "
@@ -881,6 +956,9 @@ def phase_ce_kernel(torch, ce, ce_ref, fused_cross_entropy):
         if main_err is None:
             main_err = max(errs)
         del h, w, lab, want_lse, want_pick
+    t, d, v, dname, tied = CE_CASES[0]
+    _opcheck(torch, "fused_ce_stats",
+             _ce_inputs(torch, gen, t, d, v, getattr(torch, dname), tied))
 
     times = {}
     for (t, d, v, dname, tied), suffix in CE_TIMED:
@@ -916,8 +994,11 @@ def phase_ce_kernel(torch, ce, ce_ref, fused_cross_entropy):
 def plain_versions():
     """Run the model with the kernels' plain versions on the card: the
     comparison of the kernel path with the plain path, and nothing else.
-    The kernels' wrappers are swapped out where the port calls them, so
-    their launch counts stay as they were."""
+    The kernels' wrappers are swapped out where the ops' CUDA
+    implementations call them, so their launch counts stay as they
+    were."""
+    import torch
+
     from repro_torch.kernels.fused_ce import ops as ce_ops
     from repro_torch.kernels.fused_ce.ref import fused_ce_stats_ref
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -926,9 +1007,12 @@ def plain_versions():
     from repro_torch.kernels.swa_attention.ref import swa_attention_ref
 
     def swa_plain(q, k, v, *, window):
-        return swa_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                                 v.transpose(1, 2),
-                                 window=window).transpose(1, 2)
+        # one batch row at a time, as the plain backward runs: the (H, S, S)
+        # f32 scores of one row bound its memory (llama-3.2-vision's 32
+        # heads at S 4096: 2.1 GB a buffer, 8.6 GB for a batch of 4)
+        return torch.cat([swa_attention_ref(
+            *(t[i:i + 1].transpose(1, 2) for t in (q, k, v)),
+            window=window).transpose(1, 2) for i in range(q.shape[0])])
 
     saved = ce_ops.fused_ce_stats, swa_ops.swa_flash, ssd_ops.ssd_intra_chunk
     ce_ops.fused_ce_stats, swa_ops.swa_flash, ssd_ops.ssd_intra_chunk = (
@@ -985,11 +1069,14 @@ def phase_train(torch, card, counters, path=TRAIN_PATH):
     cfg = dataclasses.replace(full, num_layers=spec.get("layers")
                               or full.num_layers)
     n_params = cfg.param_count()
+    donate = spec.get("donate", False)
     if cfg != full:
+        per_param = 16 if donate else 28
         print(f"reduced: {full.num_layers} -> {cfg.num_layers} layers, "
-              f"{full.param_count()} -> {n_params} parameters (28 bytes a "
-              f"parameter at the update: {28 * n_params} bytes); widths, "
-              f"experts, top-k and vocabulary kept", flush=True)
+              f"{full.param_count()} -> {n_params} parameters ({per_param} "
+              f"bytes a parameter at the update: {per_param * n_params} "
+              f"bytes); widths, experts, top-k, vocabulary and group "
+              f"layout kept", flush=True)
     # 6 N T counts the parameters each token touches (MoE: its top-k
     # experts)
     n_active = cfg.active_param_count()
@@ -1012,18 +1099,28 @@ def phase_train(torch, card, counters, path=TRAIN_PATH):
     if cfg4.moe is not None:
         cfg4 = dataclasses.replace(cfg4, moe=dataclasses.replace(
             cfg4.moe, router_aux_weight=0.0))
-    state = init_train_state(cfg4, tcfg, device="cuda")
-    if spec.get("gates"):
-        _set_gates(torch, state["params"])
+
+    def check_state():
+        st = init_train_state(cfg4, tcfg, device="cuda")
+        if spec.get("gates"):
+            _set_gates(torch, st["params"])
+        return st
+
+    # a donated check updates its state in place: each splice factor then
+    # starts from its own state, made from the same seed
+    check_donate = spec.get("check_donate", False)
+    state = None if check_donate else check_state()
     losses = {}
     for physical in (4, 2):
         rt4 = ElasticRuntime(cfg4, tcfg, world, physical, gb, seq,
-                             state=state, device="cuda")
+                             state=check_state() if check_donate else state,
+                             device="cuda", donate=check_donate)
         losses[rt4.splice] = [r["loss"] for r in rt4.run_steps(2)]
         del rt4
     rel = [abs(a - b) / abs(a) for a, b in zip(losses[1], losses[2])]
     print(f"splice invariance, {cfg.name} width with {cfg4.num_layers} "
-          f"layers, {cfg4.dtype}, two steps from one state: splice 1 "
+          f"layers, {cfg4.dtype}{', donated' if check_donate else ''}, two "
+          f"steps from one state: splice 1 "
           f"{losses[1]!r}, splice 2 {losses[2]!r}, rel diff {rel!r} (bound "
           f"1e-3)", flush=True)
     if not max(rel) < 1e-3:
@@ -1032,7 +1129,6 @@ def phase_train(torch, card, counters, path=TRAIN_PATH):
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    donate = spec.get("donate", False)
     rt = ElasticRuntime(cfg, tcfg, world, TRAIN["physical"][0], gb, seq,
                         device="cuda", donate=donate)
     if spec.get("gates"):
@@ -1121,6 +1217,8 @@ def phase_train(torch, card, counters, path=TRAIN_PATH):
         if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])):
             raise AssertionError(f"non-finite metrics {rec}")
         records.append(dict(rec, ms=ms))
+        peaks = PEAK_BYTES.setdefault(path, {})
+        peaks[s] = max(peaks.get(s, 0), peak)
     launches = {name: fn.launches for name, fn in counters.items()}
     slices = sum(r["splice"] for r in records)
     per_slice = {name: n // slices if n % slices == 0 else n / slices
@@ -1156,15 +1254,23 @@ def phase_train(torch, card, counters, path=TRAIN_PATH):
 def _update_transient(torch, rt):
     """One donated AdamW update of the runtime's state with gradients of
     1e-3 N(0, 1): its peak memory above what was allocated before it must
-    stay under two axis-0 slices of the largest leaf (f32)."""
-    from repro_torch.optim.adamw import adamw_update_
+    stay under two of the largest slices the update cuts (f32): it works
+    on axis-0 slices of each leaf of at most ``UPDATE_CHUNK`` elements or
+    one row (``optim/adamw.py::_row_slices``), so its transient is one
+    slice.  (granite's largest slice is one layer of its largest leaf, an
+    expert stack; llama-vision's one layer of an MLP stack, not a slice of
+    its largest leaf, the embedding, which is cut into 16M-element
+    slices.)"""
+    from repro_torch.optim.adamw import _row_slices, adamw_update_
     from repro_torch.optim.schedule import lr_schedule
     from repro_torch.utils.tree import tree_leaves, tree_map
 
     params = rt.state["params"]
     grads = tree_map(lambda p: torch.randn_like(p).mul_(1e-3), params)
-    largest = max(tree_leaves(params), key=lambda t: t.numel())
-    bound = 2 * largest[0].numel() * 4
+    shape, size = max(((tuple(t[rows].shape), t[rows].numel())
+                       for t in tree_leaves(params)
+                       for rows in _row_slices(t)), key=lambda x: x[1])
+    bound = 2 * size * 4
     lr = lr_schedule(rt.state["step"], rt.tcfg)
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
@@ -1173,12 +1279,12 @@ def _update_transient(torch, rt):
     torch.cuda.synchronize()
     transient = torch.cuda.max_memory_allocated() - before
     print(f"donated update: transient memory {transient} bytes above "
-          f"{before}; bound 2 x one axis-0 slice of the largest leaf "
-          f"{tuple(largest.shape)} = {bound} bytes", flush=True)
+          f"{before}; bound 2 x the largest slice the update cuts, "
+          f"{shape} = {bound} bytes", flush=True)
     del grads
     if not transient < bound:
         raise AssertionError("the donated update's transient memory is "
-                             "above two slices of the largest leaf")
+                             "above two of its slices")
 
 
 def phase_donate(torch):
@@ -1311,23 +1417,34 @@ DRYRUN_PAIRS = [
     ("zamba2-1.2b", "prefill_32k", "single", []),
     ("yi-9b", "decode_32k", "single", ["--donate"]),
     ("llama-3.2-vision-11b", "train_4k", "multi", []),
-    # one device, donated: its state bytes against phase 9's card
-    ("granite-moe-3b-a800m", "train_4k", "single",
-     ["--mesh-shape", "1,1", "--donate"]),
 ]
+# one device, donated: its state bytes and swa_flash ops against phase 9's
+GRANITE_ONE = ("granite-moe-3b-a800m", "train_4k", "single",
+               ["--mesh-shape", "1,1", "--donate"])
+# the vlm-train path's configuration (its depth, batch and donation) on one
+# device: the planner's bytes per device beside the card's peak at splice 1
+VLM_ONE = ("llama-3.2-vision-11b", "train_4k", "single",
+           ["--mesh-shape", "1,1", "--donate", "--layers",
+            str(TRAIN_SPECS[VLM_TRAIN_PATH]["layers"]), "--global-batch",
+            str(TRAIN["batch"])])
+DRYRUN_PAIRS += [GRANITE_ONE, VLM_ONE]
 DRYRUN_TIMEOUT = 600
 # the (1, 1) pair's batch: tokens and labels, 256 x 4096 int64
 DRYRUN_BATCH_BYTES = 2 * 256 * 4096 * 8
 
 
-def phase_dryrun(state_bytes):
+def phase_dryrun(state_bytes, swa_per_slice, vlm_peak):
     """The dry-run planner on the host (no card): each pair of
     ``DRYRUN_PAIRS`` traced on fake tensors in a fake world of the mesh's
-    size; its roofline terms (data-sheet models), bytes per device and
+    size, the kernels' ops running their fake implementations; its
+    roofline terms (data-sheet models), bytes per device, kernel ops and
     trace seconds.  The one-device donated granite pair's state (its
     arguments less the batch) and its aliased bytes must be within 1% of
     ``state_bytes``, phase 9's ``torch.cuda.memory_allocated()`` after its
-    setup.  Returns the records."""
+    setup, and its ``swa_flash`` ops per slice equal ``swa_per_slice``,
+    the launches phase 9 counted per slice on the card.  The vlm-train
+    configuration's bytes per device are printed beside ``vlm_peak``, the
+    card's peak at splice 1 (phase 12).  Returns the records."""
     import os
 
     print(f"\n== phase {DRYRUN_PATH}: the planner's pairs, traced on the "
@@ -1365,8 +1482,9 @@ def phase_dryrun(state_bytes):
                   f"{rf['collective_s']!r}, dominant {rf['dominant']}, "
                   f"useful_flop_ratio {rf['useful_flop_ratio']!r}, "
                   f"bytes_per_device {mem['bytes_per_device']}, "
-                  f"trace_seconds {rec['trace_seconds']}; memory {mem}; "
-                  f"collectives {rec['collectives']}", flush=True)
+                  f"trace_seconds {rec['trace_seconds']}; kernel ops "
+                  f"{rec['kernel_ops']}; op_cost {rec['op_cost']}; memory "
+                  f"{mem}; collectives {rec['collectives']}", flush=True)
             records.append(rec)
     finally:
         for *_, proc in jobs:
@@ -1377,7 +1495,8 @@ def phase_dryrun(state_bytes):
           f"{time.perf_counter() - t0:.1f} s (in parallel); the terms are "
           f"data-sheet models (H100 SXM bf16 peak, HBM and InfiniBand NDR "
           f"rates), not measurements", flush=True)
-    mem = records[-1]["memory"]
+    granite = records[DRYRUN_PAIRS.index(GRANITE_ONE)]
+    mem = granite["memory"]
     state = mem["argument_size_in_bytes"] - DRYRUN_BATCH_BYTES
     for name, val in (("arguments less the batch", state),
                       ("aliased", mem["alias_size_in_bytes"])):
@@ -1388,6 +1507,19 @@ def phase_dryrun(state_bytes):
         if not rel <= 0.01:
             raise AssertionError("the dry-run's state bytes disagree with "
                                  "the card's")
+    traced = granite["kernel_ops"].get("swa_flash", 0) / granite["splice"]
+    print(f"granite-moe one-device dry-run: {traced!r} swa_flash ops a "
+          f"slice; phase 9 launched {swa_per_slice} a slice on the card",
+          flush=True)
+    if traced != swa_per_slice:
+        raise AssertionError("the dry-run traces other swa_flash calls than "
+                             "the card launches")
+    planned = records[DRYRUN_PAIRS.index(VLM_ONE)]["memory"][
+        "bytes_per_device"]
+    print(f"vlm-train's configuration on one device: the planner's "
+          f"bytes_per_device {planned} against the card's peak at splice 1 "
+          f"{vlm_peak} (ratio {planned / vlm_peak!r}; a model of eager live "
+          f"bytes, not a bound)", flush=True)
     return records
 
 
@@ -2074,14 +2206,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_f32(SSM_TRAIN_PATH)
     by_path[FLEET_PATH] = phase_fleet(torch, counters)
-    for path in (HYBRID_TRAIN_PATH, MOE_TRAIN_PATH, AUDIO_TRAIN_PATH):
+    for path in (HYBRID_TRAIN_PATH, MOE_TRAIN_PATH, AUDIO_TRAIN_PATH,
+                 VLM_TRAIN_PATH):
         by_path[path], per_slice[path], rt, _ = phase_train(
             torch, card, counters, path)
         del rt
         torch.cuda.empty_cache()
         phase_train_f32(path)
     by_path[SIM_PATH] = phase_fleet_sim(counters)
-    phase_dryrun(STATE_BYTES[MOE_TRAIN_PATH])
+    phase_dryrun(STATE_BYTES[MOE_TRAIN_PATH],
+                 per_slice[MOE_TRAIN_PATH]["swa_flash"],
+                 PEAK_BYTES[VLM_TRAIN_PATH][1])
 
     kernels = []
     for name, route, source, replaces, stats in (

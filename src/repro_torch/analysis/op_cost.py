@@ -18,6 +18,15 @@ every device, so nothing is divided by it.
   fusion at its call site only (its internal traffic stays in registers);
   eager mode runs and counts every elementwise op, so these bytes read
   higher than a fused program's would, by design.
+- Bytes lower (``hlo_cost.py``'s write-once/read-once bound, the traffic
+  of a perfectly fused program): 2 x the result bytes of every op that is
+  not a view, and a matmul's operands + result.
+- The kernels' ops (namespace ``repro_torch``, ``kernels/_library.py``):
+  the FLOPs and bytes of their formulas (``COSTS``), for both byte counts,
+  in place of the rules above; their outputs are live as any op's.  Under
+  fake tensors they run their fake implementations, so the trace holds
+  what the kernel holds (its outputs), not its plain version's
+  intermediates.  ``kernels`` counts their calls by name.
 - Collective bytes: the result bytes of each ``c10d_functional``
   collective, by type (JAX's names: all-gather, reduce-scatter,
   all-reduce, all-to-all, collective-permute).
@@ -41,6 +50,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
+from repro_torch.kernels._library import COSTS, NAMESPACE
+
 COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                "collective-permute")
 _COLLECTIVE_OPS = {
@@ -60,12 +71,14 @@ _MATMULS = {"mm": 0, "addmm": 1, "bmm": 0, "baddbmm": 1, "addmm_": 1,
 class Cost:
     flops: float = 0.0
     bytes: float = 0.0            # operands + results, every op
+    bytes_lower: float = 0.0      # write-once/read-once (perfect fusion)
     coll_bytes: float = 0.0
     coll_by_type: Dict[str, float] = dataclasses.field(
         default_factory=lambda: {c: 0.0 for c in COLLECTIVES})
 
     def as_dict(self) -> Dict:
         return {"flops": self.flops, "bytes": self.bytes,
+                "bytes_lower": self.bytes_lower,
                 "coll_bytes": self.coll_bytes,
                 "coll_by_type": dict(self.coll_by_type)}
 
@@ -85,6 +98,7 @@ class OpCost(TorchDispatchMode):
         super().__init__()
         self.cost = Cost()
         self.ops: Counter = Counter()
+        self.kernels: Counter = Counter()
         self.live = 0
         self.peak_bytes = 0
         self._seen: Dict[int, int] = {}
@@ -170,13 +184,25 @@ class OpCost(TorchDispatchMode):
             for t in outs:
                 self._hold(t)
             return out
+        if func.namespace == NAMESPACE:
+            cost = COSTS[name](*args, **kwargs)
+            self.kernels[name] += 1
+            self.cost.flops += float(cost.flops)
+            self.cost.bytes += float(cost.bytes)
+            self.cost.bytes_lower += float(cost.bytes)
+            for t in outs:
+                self._hold(t)
+            return out
         if name in _MATMULS:
             lhs = args[_MATMULS[name]]
             self.cost.flops += 2.0 * outs[0].numel() * lhs.shape[-1]
         if not func.is_view:
             ins = [t for t in tree_leaves((args, kwargs))
                    if isinstance(t, torch.Tensor)]
-            self.cost.bytes += float(sum(_nbytes(t) for t in ins + outs))
+            moved = float(sum(_nbytes(t) for t in ins + outs))
+            self.cost.bytes += moved
+            self.cost.bytes_lower += (moved if name in _MATMULS else
+                                      2.0 * sum(_nbytes(t) for t in outs))
             for t in outs:
                 self._hold(t)
         return out

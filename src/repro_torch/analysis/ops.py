@@ -21,7 +21,9 @@ def collective_bytes(counter: OpCost) -> Dict[str, float]:
 
 
 def op_histogram(counter: OpCost, top: int = 0) -> Dict[str, int]:
-    """aten op name -> calls, most called first (``top`` > 0 keeps that
-    many)."""
-    items = counter.ops.most_common(top or None)
-    return dict(items)
+    """Op name -> calls, most called first (``top`` > 0 keeps that many),
+    and the kernels' ops (``repro_torch::*``) by name whatever their
+    rank."""
+    items = dict(counter.ops.most_common(top or None))
+    items.update((name, counter.ops[name]) for name in counter.kernels)
+    return items

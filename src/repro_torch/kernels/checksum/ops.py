@@ -1,14 +1,27 @@
 """Public fingerprint op (port of ``repro.kernels.checksum.ops``): the
-content digest of any tensor, on the device that holds it."""
+content digest of any tensor, on the device that holds it, through the
+``repro_torch::fingerprint_u32`` op (``kernels/_library.py``)."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.kernels._library import KernelCost, kernel_op
 from repro_torch.kernels.checksum.fingerprint import (LANES, fingerprint_u32,
                                                        padded_words)
 from repro_torch.kernels.checksum.ref import fingerprint_u32_ref
 from repro_torch.utils import resolve_device
+
+# integer instructions per word of the digest (csrc/fingerprint_u32.cu)
+FP_OPS_PER_WORD = 10
+
+
+def fingerprint_u32_cost(n_words: int) -> KernelCost:
+    """The words read once and the 16-byte digest written once;
+    ``FP_OPS_PER_WORD`` 32-bit integer instructions per word of the padded
+    length the digest covers (``padded_words``), and no flops."""
+    return KernelCost(flops=0, bytes=4 * n_words + 16,
+                      int_ops=FP_OPS_PER_WORD * padded_words(n_words))
 
 
 def _flat_words(arr: torch.Tensor) -> torch.Tensor:
@@ -26,15 +39,32 @@ def _flat_words(arr: torch.Tensor) -> torch.Tensor:
     return a.to(torch.float32).view(torch.uint32)
 
 
+def _padded(words: torch.Tensor) -> torch.Tensor:
+    """1-D 4-byte words as (N, 128) uint32, zero words appended to a
+    multiple of 256 x 128."""
+    words = words.view(torch.int32)
+    pad = padded_words(words.numel()) - words.numel()
+    words = torch.cat([words, words.new_zeros(pad)])
+    return words.view(torch.uint32).reshape(-1, LANES)
+
+
 def _as_words(arr: torch.Tensor) -> torch.Tensor:
     """Bit-exact view of any tensor as padded (N, 128) uint32 words, as
     JAX's ``_as_words``: 16-bit floats zero-extended, 4- and 8-byte
     elements as their words, 1-byte elements widened, anything else as
     float32 values; zero words to a multiple of 256 x 128."""
-    words = _flat_words(arr).view(torch.int32)
-    pad = padded_words(words.numel()) - words.numel()
-    words = torch.cat([words, words.new_zeros(pad)])
-    return words.view(torch.uint32).reshape(-1, LANES)
+    return _padded(_flat_words(arr))
+
+
+def _kernel(words):
+    return fingerprint_u32(words)
+
+
+fingerprint_u32_op = kernel_op(
+    "fingerprint_u32", "(Tensor words) -> Tensor",
+    cpu=lambda words: fingerprint_u32_ref(_padded(words)), cuda=_kernel,
+    fake=lambda words: words.new_empty((4,), dtype=torch.uint32),
+    cost=lambda words: fingerprint_u32_cost(words.numel()))
 
 
 def fingerprint(arr: torch.Tensor) -> torch.Tensor:
@@ -43,14 +73,13 @@ def fingerprint(arr: torch.Tensor) -> torch.Tensor:
 
     Equal contents (same dtype and shape) always give equal digests;
     distinct contents collide with probability ~2^-128 under the
-    position-weighted modular-sum family.  CPU tensors take the plain
-    version; any other tensor goes to the CUDA kernel, which launches or
-    raises.  A contiguous tensor of 4-byte elements goes to the kernel as
-    it is, with no padded copy.
+    position-weighted modular-sum family.  The op
+    ``repro_torch::fingerprint_u32`` takes the words: CPU tensors the plain
+    version, CUDA tensors the kernel, which launches or raises; any other
+    device raises.  A contiguous tensor of 4-byte elements goes to the
+    kernel as it is, with no padded copy.
     """
-    if arr.device.type == "cpu":
-        return fingerprint_u32_ref(_as_words(arr))
-    return fingerprint_u32(_flat_words(arr))
+    return fingerprint_u32_op(_flat_words(arr))
 
 
 def _to_tensor(arr) -> torch.Tensor:

@@ -1,10 +1,12 @@
 """Public fused-CE op (port of ``repro.kernels.fused_ce.ops``), with its
 gradient.
 
-The forward is the kernel on CUDA tensors and its plain version on CPU
-tensors.  The Pallas kernel has no backward (JAX differentiates
-``chunked_cross_entropy`` through XLA), so the backward here is plain torch:
-it recomputes the logits chunk by chunk from the saved ``lse``.
+The forward is the ``repro_torch::fused_ce_stats`` op
+(``kernels/_library.py``): the kernel on CUDA tensors, its plain version on
+CPU tensors, its fake on fake tensors.  The Pallas kernel has no backward
+(JAX differentiates ``chunked_cross_entropy`` through XLA), so the backward
+here is plain torch: it recomputes the logits chunk by chunk from the saved
+``lse``.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels._library import KernelCost, kernel_op
 from repro_torch.kernels.fused_ce.ce import fused_ce_stats
 from repro_torch.kernels.fused_ce.ref import fused_ce_stats_ref
 
@@ -22,16 +25,35 @@ from repro_torch.kernels.fused_ce.ref import fused_ce_stats_ref
 BACKWARD_ROWS = 2048
 
 
-def _stats(hidden, head, labels):
-    if hidden.device.type == "cpu":
-        return fused_ce_stats_ref(hidden, head, labels)
+def fused_ce_stats_cost(t: int, d: int, v: int, elsize: int) -> KernelCost:
+    """hidden (T, d), head (d, V) (``elsize`` bytes an element) and int32
+    labels read once and lse, pick (f32) written once; 2 T d V flops."""
+    return KernelCost(flops=2 * t * d * v,
+                      bytes=elsize * (t * d + d * v) + 4 * t + 8 * t)
+
+
+def _kernel(hidden, head, labels):
     return fused_ce_stats(hidden, head, labels)
+
+
+def _fake(hidden, head, labels):
+    t = hidden.shape[0]
+    return (hidden.new_empty((t, 1), dtype=torch.float32),
+            hidden.new_empty((t, 1), dtype=torch.float32))
+
+
+fused_ce_stats_op = kernel_op(
+    "fused_ce_stats",
+    "(Tensor hidden, Tensor head, Tensor labels) -> (Tensor, Tensor)",
+    cpu=fused_ce_stats_ref, cuda=_kernel, fake=_fake,
+    cost=lambda hidden, head, labels: fused_ce_stats_cost(
+        *hidden.shape, head.shape[1], hidden.element_size()))
 
 
 class _FusedCrossEntropy(torch.autograd.Function):
     @staticmethod
     def forward(ctx, hidden, head, labels):
-        lse, pick = _stats(hidden, head, labels.clamp(min=0))
+        lse, pick = fused_ce_stats_op(hidden, head, labels.clamp(min=0))
         mask = (labels >= 0).float()
         loss = ((lse[:, 0] - pick[:, 0]) * mask).sum()
         ctx.save_for_backward(hidden, head, labels, lse)
@@ -66,7 +88,7 @@ class _FusedCrossEntropy(torch.autograd.Function):
 class _FusedCEStats(torch.autograd.Function):
     @staticmethod
     def forward(ctx, hidden, head, labels):
-        lse, pick = _stats(hidden, head, labels)
+        lse, pick = fused_ce_stats_op(hidden, head, labels)
         inside = (labels >= 0) & (labels < head.shape[1])
         pick = torch.where(inside[:, None], pick, 0.0)
         ctx.save_for_backward(hidden, head, labels, lse)
@@ -112,7 +134,7 @@ def fused_ce_shard_stats(hidden: torch.Tensor, head: torch.Tensor,
     outside [0, V) (held by another shard, or ignored); the caller
     combines the shards' lse by a logsumexp and their picks by a sum.
     Shapes as ``fused_cross_entropy``'s; the forward is the kernel on CUDA
-    tensors, its plain version on CPU tensors."""
+    tensors, its plain version on CPU tensors; any other device raises."""
     return _FusedCEStats.apply(hidden.contiguous(), head, labels)
 
 

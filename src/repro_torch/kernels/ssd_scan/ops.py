@@ -1,18 +1,60 @@
 """Public SSD op: the intra-chunk kernel plus the inter-chunk recurrence
-(port of ``repro.kernels.ssd_scan.ops``), with its gradient."""
+(port of ``repro.kernels.ssd_scan.ops``), with its gradient and the
+``repro_torch::ssd_intra_chunk`` op (``kernels/_library.py``)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels._library import KernelCost, kernel_op
 from repro_torch.kernels.ssd_scan.ref import _pad_seq, ssd_intra_chunk_ref
 from repro_torch.kernels.ssd_scan.ssd import ssd_intra_chunk
 
 
+def ssd_intra_chunk_cost(bc: int, q: int, h: int, p: int, n: int,
+                         elsize: int) -> KernelCost:
+    """x, b, c (``elsize`` bytes an element), dt and a (f32) read once and
+    y, states and cum (f32) written once; the products: C B^T once per
+    chunk over the causal pairs, M x over the causal pairs per head,
+    x^T (w B) in full per head."""
+    read = elsize * bc * q * (h * p + 2 * n) + 4 * (bc * q * h + h)
+    written = 4 * (bc * q * h * p + bc * h * p * n + bc * q * h)
+    pairs = q * (q + 1) // 2
+    return KernelCost(
+        flops=2 * bc * (n * pairs + h * p * pairs + h * q * p * n),
+        bytes=read + written)
+
+
+def _plain(x, dt, a, b, c):
+    return tuple(t.contiguous() for t in ssd_intra_chunk_ref(x, dt, a, b, c))
+
+
+def _kernel(x, dt, a, b, c):
+    return ssd_intra_chunk(x, dt, a, b, c)
+
+
+def _fake(x, dt, a, b, c):
+    bc, q, h, p = x.shape
+    f32 = dict(dtype=torch.float32)
+    return (x.new_empty((bc, q, h, p), **f32),
+            x.new_empty((bc, h, p, b.shape[-1]), **f32),
+            x.new_empty((bc, q, h), **f32))
+
+
+ssd_intra_chunk_op = kernel_op(
+    "ssd_intra_chunk",
+    "(Tensor x, Tensor dt, Tensor a, Tensor b, Tensor c) "
+    "-> (Tensor, Tensor, Tensor)",
+    cpu=_plain, cuda=_kernel, fake=_fake,
+    cost=lambda x, dt, a, b, c: ssd_intra_chunk_cost(
+        *x.shape, b.shape[-1], x.element_size()))
+
+
 class _SsdIntraChunk(torch.autograd.Function):
-    """Forward: ``ssd_intra_chunk`` on CUDA tensors, the plain version on
-    CPU tensors.  Backward: plain torch on both; it recomputes the plain
+    """Forward: the ``repro_torch::ssd_intra_chunk`` op (the kernel on CUDA
+    tensors, the plain version on CPU tensors, the fake on fake tensors).
+    Backward: plain torch on both devices; it recomputes the plain
     version under autograd and takes the gradients of its three outputs
     (``cum`` too, which the inter-chunk part decays by).  The kernel's
     outputs carry no graph of their own, so without this Function a card
@@ -23,9 +65,7 @@ class _SsdIntraChunk(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dt, a, b, c):
         ctx.save_for_backward(x, dt, a, b, c)
-        if x.device.type == "cpu":
-            return ssd_intra_chunk_ref(x, dt, a, b, c)
-        return ssd_intra_chunk(x, dt, a, b, c)
+        return ssd_intra_chunk_op(x, dt, a, b, c)
 
     @staticmethod
     def backward(ctx, dy, dstates, dcum):
@@ -52,10 +92,10 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     x (B, L, H, P), dt (B, L, H), a (H,), b/c (B, L, N) ->
     (y (B, L, H, P) in x's dtype, final_state (B, H, P, N) f32).  L is
     padded to a multiple of ``chunk`` with zeros (dt = 0: no decay and no
-    contribution).  CPU tensors take the plain intra-chunk version; any
-    other tensor goes to the CUDA kernel, which launches or raises.  The
-    recurrence across chunks and the inter-chunk output stay plain torch
-    under autograd, as JAX runs them outside Pallas.
+    contribution).  CPU tensors take the plain intra-chunk version, CUDA
+    tensors the kernel, which launches or raises; any other device raises.
+    The recurrence across chunks and the inter-chunk output stay plain
+    torch under autograd, as JAX runs them outside Pallas.
     """
     bs, l, h, p = x.shape
     n = b.shape[-1]

@@ -19,16 +19,24 @@ of the full-size state is allocated.  ``analysis/op_cost.py`` counts the
 ops rank 0 runs, from its local shards (the mesh is symmetric), and the
 bytes live at once.
 
+The models call the four kernels through their ``torch.library`` ops
+(``kernels/_library.py``), which run their fake implementations on fake
+tensors: the trace holds what each kernel holds on the card (its
+outputs), where the plain versions would hold their whole score matrices,
+and ``op_cost.py`` counts each op by its formula (``swa_flash`` its
+causal pairs, not the dense S x S products).  So the trace plans the
+kernel path the card runs, as JAX's dry-run lowers the path its TPU runs.
+
 The record has JAX's keys where they mean the same thing;
 ``trace_seconds`` stands for ``lower_seconds`` and ``compile_seconds``,
-``op_cost`` for ``hlo_cost``, ``aten_ops`` for ``hlo_ops``, and there is
-no ``xla_cost_analysis``.  ``memory`` holds ``argument_size_in_bytes``
-(the local state and batch), ``output_size_in_bytes`` (the local results),
+``op_cost`` for ``hlo_cost`` (with ``bytes_lower``, the write-once bound),
+``aten_ops`` for ``hlo_ops`` (the kernels' ops among them by name), and
+there is no ``xla_cost_analysis``; ``kernel_ops`` counts the kernels'
+ops.  ``memory`` holds ``argument_size_in_bytes`` (the local state and
+batch), ``output_size_in_bytes`` (the local results),
 ``alias_size_in_bytes`` (the donated state: outputs written into
 arguments), ``temp_size_in_bytes`` and ``bytes_per_device`` = argument +
-output + temp - alias, the most bytes live at once.  The models trace
-their plain versions of the kernels (CPU fake tensors), as JAX's dry-run
-lowers its plain jnp models.
+output + temp - alias, the most bytes live at once.
 
 The fake world is this process's: ``lower_pair`` destroys the process
 group it made before it returns, even on an error, and refuses to run
@@ -195,6 +203,7 @@ def lower_pair(arch: str, shape_name: str, multi_pod: bool,
         "param_count": cfg.param_count(),
         "active_param_count": cfg.active_param_count(),
         "aten_ops": op_histogram(counter, top=25),
+        "kernel_ops": dict(counter.kernels),
     }
     if extra_tags:
         rec.update(extra_tags)
@@ -229,7 +238,12 @@ def main(argv=None) -> None:
                          "step at --seq-len x --global-batch (needs "
                          "--mesh-shape)")
     ap.add_argument("--seq-len", type=int, default=64)
-    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--global-batch", type=int, default=None,
+                    help="the smoke step's batch (default 8); with a pair's "
+                         "shape, replaces its global batch")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the pair's config to this many layers, widths "
+                         "kept (0: keep), as train.py --layers")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
@@ -239,12 +253,20 @@ def main(argv=None) -> None:
         if override is None:
             ap.error("--smoke needs --mesh-shape")
         rec = lower_smoke(args.arch, args.smoke, override, args.donate,
-                          args.seq_len, args.global_batch)
+                          args.seq_len, args.global_batch or 8)
     else:
+        plan = plan_pair(args.arch, args.shape)
+        cfg = shape = None
+        if args.layers and plan.cfg is not None:
+            cfg = dataclasses.replace(plan.cfg, num_layers=args.layers)
+        if args.global_batch and plan.shape is not None:
+            shape = dataclasses.replace(plan.shape,
+                                        global_batch=args.global_batch)
         rec = lower_pair(args.arch, args.shape,
                          multi_pod=(args.mesh == "multi"),
                          splice=args.splice, remat=not args.no_remat,
-                         donate=args.donate, mesh_override=override)
+                         donate=args.donate, mesh_override=override,
+                         config=cfg, shape_config=shape)
     text = json.dumps(rec, indent=2, default=str)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
@@ -256,6 +278,7 @@ def main(argv=None) -> None:
               f"chips={rec['chips']} trace={rec['trace_seconds']}s "
               f"dominant={rf['dominant']}")
         print("memory:", rec["memory"])
+        print("kernel ops:", rec["kernel_ops"])
         print("op_cost:", {k: f"{v:.3e}" for k, v in rec["op_cost"].items()
                            if isinstance(v, float)})
         print("roofline:", {k: (f"{v:.4g}" if isinstance(v, float) else v)

@@ -28,6 +28,16 @@ from repro_torch.training.state import init_train_state
 from repro_torch.utils.tree import (tree_flatten, tree_from_spec, tree_spec,
                                     tree_unflatten_sorted)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread (see ``tests/test_torch_donate.py``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CFG = dataclasses.replace(get_smoke_config("olmo-1b"), dtype="float32")
 TCFG = dict(total_steps=40, warmup_steps=2, learning_rate=1e-3)
 W, G, S = 4, 8, 32

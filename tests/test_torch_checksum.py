@@ -20,6 +20,16 @@ from repro_torch.kernels.checksum.fingerprint import (BLOCK_WORDS, P1, P2, P3,
 from repro_torch.kernels.checksum.ops import _as_words, digest_hex, fingerprint
 from repro_torch.kernels.checksum.ref import fingerprint_u32_ref
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread (see ``tests/test_torch_donate.py``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 M32 = np.uint64(0xFFFFFFFF)
 
 # test_kernels.py:17-20, then f16, int8, bool, int16 (the float32-values

@@ -158,7 +158,7 @@ def test_per_device_counts():
 def test_flops_match_jax_one_device():
     """The olmo smoke train step at batch 2 x 512 on one device, remat on:
     the port's count is JAX's ``analyze_hlo`` count plus exactly two
-    recompute terms.
+    recompute terms, less exactly the masked products the kernel skips.
 
     At S = 512 JAX's 512-blocks and 128-token CE chunks pad nothing, so the
     two run the same products: per layer q/k/v/o projections and the MLP
@@ -169,9 +169,13 @@ def test_flops_match_jax_one_device():
     Q·Kᵀ once more: 2 layers x 2·B·H·S²·D = 2 x 2·2·4·512²·64 =
     536,870,912 FLOPs.  The CE under a mesh (``fused_ce_shard_stats``)
     keeps (lse, label logit) and not the logits, so its backward
-    recomputes them: 2·T·d·V = 2·1024·256·512 = 268,435,456 FLOPs.
-    Together 3.8% of JAX's 21,206,401,024.  Bound: those terms exactly,
-    to 1e-6 of JAX's count."""
+    recomputes them: 2·T·d·V = 2·1024·256·512 = 268,435,456 FLOPs.  The
+    forward attention is the ``repro_torch::swa_flash`` op, counted by its
+    formula over the causal pairs S(S+1)/2 where JAX's block multiplies
+    the whole S²: each of its 4 forward calls (2 layers, again under remat)
+    does 4·B·H·D·(S² - S(S+1)/2) = 4·2·4·64·130,816 = 267,911,168 FLOPs
+    fewer, 1,071,644,672 in all.  Bound: those terms exactly, to 1e-6 of
+    JAX's count."""
     seq, batch = 512, 2
     cfg = jax_smoke_config("olmo-1b")
     tcfg = JaxTrainConfig()
@@ -185,8 +189,11 @@ def test_flops_match_jax_one_device():
     attention = cfg.num_layers * 2 * batch * cfg.num_heads * seq ** 2 * \
         cfg.resolved_head_dim()
     logits = 2 * batch * seq * cfg.d_model * cfg.vocab_size
-    assert abs(rec["op_cost"]["flops"] - (want + attention + logits)) <= \
-        1e-6 * want
+    masked = 2 * cfg.num_layers * 4 * batch * cfg.num_heads * \
+        cfg.resolved_head_dim() * (seq ** 2 - seq * (seq + 1) // 2)
+    assert rec["kernel_ops"]["swa_flash"] == 2 * cfg.num_layers
+    assert abs(rec["op_cost"]["flops"]
+               - (want + attention + logits - masked)) <= 1e-6 * want
 
 
 def test_model_flops_equal_jax():

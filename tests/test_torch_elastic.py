@@ -21,6 +21,16 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.elastic import ElasticRuntime
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread (see ``tests/test_torch_donate.py``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CFG = dataclasses.replace(get_smoke_config("olmo-1b"), dtype="float32")
 TCFG = dict(total_steps=40, warmup_steps=2, learning_rate=1e-3)
 W, G, S = 4, 8, 32

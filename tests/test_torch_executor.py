@@ -17,6 +17,16 @@ from repro_torch.scheduler import executor as pt_executor
 from repro_torch.scheduler import job_table as pt_job_table
 from repro_torch.scheduler import scenarios
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread (see ``tests/test_torch_donate.py``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SIDES = {"jax": (jax_executor, jax_job_table),
          "port": (pt_executor, pt_job_table)}
 

@@ -31,6 +31,16 @@ from repro_torch.kernels.fused_ce.ref import (cross_entropy_ref,
 from repro_torch.kernels.swa_attention import swa_attention
 from repro_torch.models.model import chunked_cross_entropy
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread (see ``tests/test_torch_donate.py``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SHAPES = [(100, 64, 500), (256, 128, 1024), (130, 32, 777), (128, 64, 512)]
 
 

@@ -34,6 +34,16 @@ from repro_torch.core.elastic import ElasticRuntime
 from repro_torch.models import model_forward
 from repro_torch.utils.tree import tree_flatten, tree_leaves
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread (see ``tests/test_torch_donate.py``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCH, LAYERS = "zamba2-1.2b", 5
 B, S = 2, 48            # 1.5 chunks of 32
 TCFG = dict(total_steps=40, warmup_steps=2, learning_rate=1e-3)

@@ -16,6 +16,15 @@ from repro_torch.kernels.swa_attention import swa_attention
 from repro_torch.kernels.swa_attention.swa import check_head_dim, swa_flash
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread (see ``tests/test_torch_donate.py``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _qkv(seed, shape):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal(shape, dtype=np.float32) for _ in range(3)]

@@ -15,6 +15,16 @@ from repro_torch.models import attention as pt_attn
 from repro_torch.models import common as pt_common
 from repro_torch.models import mlp as pt_mlp
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread (see ``tests/test_torch_donate.py``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 

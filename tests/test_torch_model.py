@@ -25,6 +25,16 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.models import decode_step_fn, init_params, prefill_fn
 from repro_torch.serving.engine import ServingEngine
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread (see ``tests/test_torch_donate.py``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 B, S = 2, 48
 

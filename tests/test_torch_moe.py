@@ -51,6 +51,16 @@ from repro_torch.training import build_train_step
 from repro_torch.utils.tree import tree_flatten, tree_leaves
 from test_torch_ssm_train import assert_first_adamw_step_close
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread (see ``tests/test_torch_donate.py``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCHS = ["granite-moe-3b-a800m", "qwen3-moe-30b-a3b"]
 B, S = 2, 40
 TCFG = dict(total_steps=40, warmup_steps=2, learning_rate=1e-3)

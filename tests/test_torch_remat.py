@@ -27,6 +27,16 @@ from repro_torch.models import model as model_lib
 from repro_torch.models.frontend import synth_extra_inputs
 from repro_torch.utils.tree import tree_leaves, tree_unflatten
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread (see ``tests/test_torch_donate.py``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CASES = {"olmo-1b": None, "granite-moe-3b-a800m": None, "mamba2-130m": None,
          "zamba2-1.2b": 3, "whisper-base": None, "llama-3.2-vision-11b": 4}
 

@@ -17,6 +17,16 @@ from repro.serving import engine as jax_engine
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.serving import engine as pt_engine
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread (see ``tests/test_torch_donate.py``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 

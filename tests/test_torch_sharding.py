@@ -37,6 +37,16 @@ from repro_torch.optim import zero as torch_zero
 from repro_torch.parallel import sharding as torch_sharding
 from repro_torch.parallel.constraints import constrain
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread (see ``tests/test_torch_donate.py``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MESHES = [(("data", "model"), (1, 1)), (("data", "model"), (2, 4)),
           (("data", "model"), (16, 16)), (("pod", "data", "model"),
                                           (2, 16, 16))]

@@ -21,6 +21,16 @@ import torch
 from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
 from repro_torch.kernels.ssd_scan.ssd import MAX_GROUP, head_group
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread (see ``tests/test_torch_donate.py``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SSD_TOL = dict(rtol=1e-4, atol=1e-4)  # chip_smoke.SSD_TOL
 H100_SMS = 132
 

@@ -24,6 +24,16 @@ from repro_torch.kernels.ssd_scan.ref import (ssd_chunked_ref,
 from repro_torch.kernels.ssd_scan.ssd import ssd_intra_chunk
 from repro_torch.models import ssm as pt_ssm
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread (see ``tests/test_torch_donate.py``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 

@@ -31,6 +31,16 @@ from repro_torch.models import (decode_step_fn, init_decode_state,
 from repro_torch.models.ssm import F32_LEAVES
 from repro_torch.serving.engine import ServingEngine
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread (see ``tests/test_torch_donate.py``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 B = 2
 # name -> (arch, layers or None for the smoke config's, prompt length)

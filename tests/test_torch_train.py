@@ -43,6 +43,16 @@ from repro_torch.optim.adamw import global_norm
 from repro_torch.training import build_train_step, init_train_state
 from repro_torch.utils.tree import tree_leaves
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread (see ``tests/test_torch_donate.py``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 B, S = 2, 32
 TCFG = dict(total_steps=40, warmup_steps=2, learning_rate=1e-3)
 

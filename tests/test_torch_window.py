@@ -16,6 +16,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.configs import get_smoke_config as jax_smoke_config
@@ -24,6 +25,16 @@ from repro.models import prefill_fn as jax_prefill_fn
 from repro_torch.bridge import params_from_jax, params_to_numpy
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import decode_step_fn, init_params, prefill_fn
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread (see ``tests/test_torch_donate.py``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ARCH = "h2o-danube-3-4b"
 B, S, NEW = 2, 160, 40

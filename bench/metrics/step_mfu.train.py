@@ -1,0 +1,16 @@
+"""The step's model FLOPs (``costs.step_flops``: 6 N T and the causal
+attention products, no recomputation) over its device time, as a share of
+the H100's dense bf16 peak, in %.  The step time is the mean of the
+measured window's steps, each timed by CUDA events around the runtime's
+call, outside the traced sub-window."""
+from bench import costs
+
+
+def read(run):
+    if not run.step_s:
+        return None
+    t = run.cell.traffic
+    flops = costs.step_flops(run.cell.config["model"], t["seq_len"],
+                             t["global_batch"])
+    step_s = sum(run.step_s) / len(run.step_s)
+    return 100.0 * flops / step_s / costs.PEAK_BF16_FLOPS

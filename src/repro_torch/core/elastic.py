@@ -39,6 +39,7 @@ from repro_torch.optim.zero import validate_partial_sharding
 from repro_torch.training.state import TrainState, init_train_state
 from repro_torch.training.step import build_train_step
 from repro_torch.utils import resolve_device
+from repro_torch.utils.spans import span
 from repro_torch.utils.tree import tree_map
 
 
@@ -96,8 +97,6 @@ class ElasticRuntime:
             for key, val in extra_inputs.items()}
         self._steps: Dict[int, Callable] = {}
         self.history: List[Dict] = []
-        # time to build each splice factor's step (JAX: its jit compile)
-        self.compile_seconds = 0.0
 
     # ------------------------------------------------------------------ step
     @property
@@ -107,11 +106,9 @@ class ElasticRuntime:
     def _step_fn(self) -> Callable:
         s = self.splice
         if s not in self._steps:
-            t0 = time.time()
             self._steps[s] = build_train_step(self.cfg, self.tcfg, splice=s,
                                               with_barrier=True,
                                               donate=self.donate)
-            self.compile_seconds += time.time() - t0
         return self._steps[s]
 
     # ----------------------------------------------------- preemption flow
@@ -138,16 +135,17 @@ class ElasticRuntime:
         out = []
         fn = self._step_fn()
         for _ in range(n):
-            batch = self._batch()
-            self.state, metrics = fn(self.state, batch,
-                                     self.barrier.flags(self.device))
-            acquired = self.barrier.observe(metrics["barrier"])
-            rec = {"step": int(self.state["step"]),
-                   "loss": float(metrics["loss"]),
-                   "grad_norm": float(metrics["grad_norm"]),
-                   "splice": self.splice,
-                   "physical": self.physical,
-                   "barrier_acquired": acquired}
+            with span("elastic.step"):
+                batch = self._batch()
+                self.state, metrics = fn(self.state, batch,
+                                         self.barrier.flags(self.device))
+                acquired = self.barrier.observe(metrics["barrier"])
+                rec = {"step": int(self.state["step"]),
+                       "loss": float(metrics["loss"]),
+                       "grad_norm": float(metrics["grad_norm"]),
+                       "splice": self.splice,
+                       "physical": self.physical,
+                       "barrier_acquired": acquired}
             out.append(rec)
             self.history.append(rec)
             if acquired and stop_on_barrier:

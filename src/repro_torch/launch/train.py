@@ -105,8 +105,7 @@ def main(argv=None) -> None:
               f"grad_norm={rec['grad_norm']:.4f} "
               f"splice={rec['splice']} physical={rec['physical']}")
     wall = time.time() - t0
-    print(f"done: {args.steps} steps in {wall:.1f}s on {rt.device} "
-          f"(step builds {rt.compile_seconds:.3f}s)")
+    print(f"done: {args.steps} steps in {wall:.1f}s on {rt.device}")
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"history": rt.history, "events": events,

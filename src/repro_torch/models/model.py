@@ -44,6 +44,7 @@ from repro_torch.parallel.constraints import (BATCH, MODEL, clean_spec,
                                               mesh_axis_sizes, pin,
                                               shard_map)
 from repro_torch.utils import torch_dtype
+from repro_torch.utils.spans import span
 
 PORTED = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 # leaves kept in f32 whatever the parameters' dtype, as in JAX: the SSM's
@@ -181,17 +182,18 @@ class _GradSum:
         self.tree, self.stack = tree, None
 
     def add(self, i: int, grad: torch.Tensor) -> None:
-        tree = self.tree
-        if tree.is_leaf and tree.grad is not None:
-            target = tree.grad
-        else:
-            if self.stack is None:
-                self.stack = torch.zeros_like(tree)
-            target = self.stack
-        layer = target[i]
-        if is_dtensor(layer):   # a partial sum is reduced to the sum's split
-            grad = grad.redistribute(layer.device_mesh, layer.placements)
-        layer.add_(grad)
+        with span("step.grad_sum"):
+            tree = self.tree
+            if tree.is_leaf and tree.grad is not None:
+                target = tree.grad
+            else:
+                if self.stack is None:
+                    self.stack = torch.zeros_like(tree)
+                target = self.stack
+            layer = target[i]
+            if is_dtensor(layer):  # a partial sum is reduced to the sum's split
+                grad = grad.redistribute(layer.device_mesh, layer.placements)
+            layer.add_(grad)
 
 
 class _StackOf(torch.autograd.Function):

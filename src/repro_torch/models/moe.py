@@ -44,6 +44,7 @@ from repro_torch.models.mlp import init_mlp, mlp_forward
 from repro_torch.parallel.constraints import (BATCH, MODEL, constrain,
                                               current_mesh, is_dtensor,
                                               mesh_axis_sizes, shard_map)
+from repro_torch.utils.spans import span
 
 EXPERT_PAD = 16   # expert count padded to a multiple of this (granite 40->48)
 
@@ -145,13 +146,15 @@ def _local_expert_ffn(xf: torch.Tensor, idx: torch.Tensor,
     """
     t, d = xf.shape
     e_loc = wi.shape[0]
-    safe_e, safe_p, keep = dispatch(idx, e_loc, capacity, e_offset)
-    contrib = torch.where(keep[:, None], xf.repeat_interleave(k, dim=0), 0)
-    rows = safe_e * capacity + safe_p
-    # dropped entries add zeros at row (0, 0): accumulate, never assign;
-    # each kept row gets one entry, so the sum is exact in any order
-    buf = xf.new_zeros((e_loc * capacity, d)).index_add_(
-        0, rows, contrib).view(e_loc, capacity, d)
+    with span("moe.dispatch"):
+        safe_e, safe_p, keep = dispatch(idx, e_loc, capacity, e_offset)
+        contrib = torch.where(keep[:, None], xf.repeat_interleave(k, dim=0),
+                              0)
+        rows = safe_e * capacity + safe_p
+        # dropped entries add zeros at row (0, 0): accumulate, never assign;
+        # each kept row gets one entry, so the sum is exact in any order
+        buf = xf.new_zeros((e_loc * capacity, d)).index_add_(
+            0, rows, contrib).view(e_loc, capacity, d)
 
     if kind == "swiglu" and FUSED_GATE:
         hg = torch.bmm(buf, torch.cat([wi, wg], dim=-1).to(xf.dtype))
@@ -165,9 +168,10 @@ def _local_expert_ffn(xf: torch.Tensor, idx: torch.Tensor,
             h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
     out_buf = torch.bmm(h, wo.to(xf.dtype))
 
-    gathered = out_buf.reshape(-1, d).index_select(0, rows)     # (t k, d)
-    wk = (weights.reshape(-1) * keep).to(xf.dtype)
-    return (gathered * wk[:, None]).reshape(t, k, d).sum(dim=1)
+    with span("moe.combine"):
+        gathered = out_buf.reshape(-1, d).index_select(0, rows)  # (t k, d)
+        wk = (weights.reshape(-1) * keep).to(xf.dtype)
+        return (gathered * wk[:, None]).reshape(t, k, d).sum(dim=1)
 
 
 def moe_forward(params: Dict, x: torch.Tensor, kind: str, moe: MoEConfig

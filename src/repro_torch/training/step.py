@@ -41,6 +41,7 @@ from repro_torch.parallel.constraints import current_mesh
 from repro_torch.models.model import check_trainable, model_forward
 from repro_torch.optim.adamw import adamw_update, adamw_update_, global_norm
 from repro_torch.optim.schedule import lr_schedule
+from repro_torch.utils.spans import span
 from repro_torch.utils.tree import tree_leaves, tree_unflatten
 
 
@@ -65,14 +66,17 @@ def loss_and_grads(params: Dict, batch: Dict, cfg: ModelConfig,
     for i in range(splice):
         mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
         with torch.enable_grad():
-            loss, _ = model_forward(tree, mb, cfg, remat=tcfg.remat,
-                                    remat_policy=tcfg.remat_policy)
-            torch.autograd.backward(loss, inputs=xs)
+            with span("step.forward"):
+                loss, _ = model_forward(tree, mb, cfg, remat=tcfg.remat,
+                                        remat_policy=tcfg.remat_policy)
+            with span("step.backward"):
+                torch.autograd.backward(loss, inputs=xs)
         lsum = loss.detach() if lsum is None else lsum + loss.detach()
     acc = []
-    for x in xs:
-        gr, x.grad = x.grad, None
-        acc.append(gr.div_(splice) if splice > 1 else gr)
+    with span("step.grad_sum"):
+        for x in xs:
+            gr, x.grad = x.grad, None
+            acc.append(gr.div_(splice) if splice > 1 else gr)
     return lsum / splice, tree_unflatten(params, acc)
 
 
@@ -92,19 +96,20 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, splice: int = 1,
     def train_step(state: Dict, batch: Dict, barrier_flags=None):
         loss, grads = loss_and_grads(state["params"], batch, cfg, tcfg,
                                      splice)
-        lr = lr_schedule(state["step"], tcfg)
-        if donate:
-            gnorm = adamw_update_(state["params"], grads, state["opt"], lr,
-                                  tcfg)
-            del grads
-            state["step"].add_(1)
-            new_state = state
-        else:
-            new_params, new_opt = adamw_update(state["params"], grads,
-                                               state["opt"], lr, tcfg)
-            gnorm = global_norm(grads)
-            new_state = {"params": new_params, "opt": new_opt,
-                         "step": state["step"] + 1}
+        with span("step.update"):
+            lr = lr_schedule(state["step"], tcfg)
+            if donate:
+                gnorm = adamw_update_(state["params"], grads, state["opt"],
+                                      lr, tcfg)
+                del grads
+                state["step"].add_(1)
+                new_state = state
+            else:
+                new_params, new_opt = adamw_update(state["params"], grads,
+                                                   state["opt"], lr, tcfg)
+                gnorm = global_norm(grads)
+                new_state = {"params": new_params, "opt": new_opt,
+                             "step": state["step"] + 1}
         metrics = {"loss": loss, "lr": lr, "grad_norm": gnorm}
         if with_barrier:
             if barrier_flags is None:

@@ -804,3 +804,34 @@ def test_donated_update_transient_memory_on_card():
     torch.cuda.synchronize()
     transient = torch.cuda.max_memory_allocated() - before
     assert transient < 2 * params["wi"][0].numel() * 4, transient
+
+
+@pytest.mark.cuda
+def test_spans_stay_off_the_device_trace_on_card():
+    """One step of the granite smoke job on the card (splice 2, full
+    remat) under the profiler's CPU and CUDA activity: no device event
+    carries a span's name (a span is a host operator, not an annotation
+    the profiler mirrors on the device), every span is recorded, and the
+    spans hold the device time of their kernels, on autograd's thread
+    too (``step.grad_sum``, the recomputed ``moe.dispatch``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.elastic import ElasticRuntime
+    from repro_torch.utils.spans import NAMES
+
+    dev = _card()
+    cfg = get_smoke_config("granite-moe-3b-a800m")
+    rt = ElasticRuntime(cfg, TrainConfig(total_steps=40, warmup_steps=2),
+                        4, 2, 8, 64, device=dev)
+    rt.run_steps(1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rt.run_steps(1)
+    cuda = torch.autograd.DeviceType.CUDA
+    on_device = {e.name for e in prof.events() if e.device_type == cuda}
+    assert on_device and not on_device & set(NAMES)
+    ops = {e.key: e for e in prof.key_averages() if e.device_type != cuda}
+    assert set(NAMES) <= set(ops)
+    for name in ("step.update", "step.grad_sum", "moe.dispatch",
+                 "moe.combine"):
+        assert ops[name].device_time_total > 0, name

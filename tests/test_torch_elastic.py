@@ -176,4 +176,4 @@ def test_step_builds_once_per_splice():
     rt.resize(2)
     rt.resize(4)
     rt.resize(2)
-    assert sorted(rt._steps) == [1, 2] and rt.compile_seconds >= 0
+    assert sorted(rt._steps) == [1, 2]

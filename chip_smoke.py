@@ -5,7 +5,7 @@
 
 Phases, each of which raises on failure (the exit code is then non-zero):
 
-1. Print the card (``nvidia-smi``) and the host's memory, build the four
+1. Print the card (``nvidia-smi``) and the host's memory, build the five
    hand-written CUDA kernels from the repository's sources (one ``nvcc``
    per source, all started together) and print the build time and the
    compiler's register report.
@@ -27,6 +27,13 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    PyTorch's ``scaled_dot_product_attention`` (the yardstick, with the
    window as a boolean mask where it is shorter than S; the port never
    calls it) beside the kernel's bound.
+2e. Hold ``swa_flash_bwd`` (the backward of ``swa_flash``) against the
+   plain backward on the same bf16 inputs at ``BWD_CASES`` (head dims 64,
+   80, 120 and 128, a window, a ragged S); ``torch.library.opcheck`` of
+   the op on CUDA inputs; then, at olmo-1b's and granite-moe's training
+   calls (``BWD_TIMED``), time it (back to back, and its kernels' device
+   time by the profiler) and the plain backward beside the bound of its
+   least work (the four products over the causal pairs).
 2b. Hold ``ssd_intra_chunk`` against its plain version at the mamba2-130m
    serving shape (bf16 and f32), the zamba2-1.2b one and bf16 cases in
    groups of heads (head dims 16, 32 and 128, a ragged chunk, N 40 and 33,
@@ -101,8 +108,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    the plain path on the first batch (loss, grad_norm, a nonzero gradient
    for every leaf); then the main path, counts set to 0 just before and
    read just after, with each step's launches asserted (1
-   ``fused_ce_stats`` and 32 ``swa_flash`` per slice: 16 layers in the
-   forward and 16 again in remat's recomputation), its time, tokens/s,
+   ``fused_ce_stats``, 32 ``swa_flash`` and 16 ``swa_flash_bwd`` per
+   slice: 16 layers in the forward and 16 again in remat's recomputation,
+   and 16 backward), its time, tokens/s,
    peak memory and share of the bf16 peak; a profile of one step; the
    first loss against ln V + sigma^2 / 2; splice 1 against splice 2 from
    one state at full width with 4 layers.
@@ -265,6 +273,23 @@ SWA_TIMED = [(KERNEL_CASES[0], "", 200), (KERNEL_CASES[4], "_train", 20),
              (KERNEL_CASES[20], "_whisper", 200),
              (KERNEL_CASES[21], "_whisper_train", 20),
              (KERNEL_CASES[23], "_vlm_train", 20)]
+# swa_flash_bwd vs the plain backward on the card, bf16: (B, S, H, D,
+# window)
+BWD_CASES = [
+    (4, 4096, 16, 128, 0),    # olmo-1b training, splice 1
+    (4, 4096, 24, 64, 0),     # granite-moe-3b-a800m training, splice 1
+    (1, 4096, 16, 128, 0),    # olmo-1b at splice 4: a row a slice
+    (4, 4096, 32, 64, 4096),  # zamba2-1.2b training: its window of S
+    (2, 512, 24, 80, 0),      # head dim 80, padded to 80
+    (2, 333, 4, 120, 100),    # head dim 120, a ragged S and a window
+    (1, 1000, 8, 128, 256),   # a window shorter than S
+]
+# each of dq, dk, dv to this share of the plain one's largest entry:
+# tests/test_torch_cuda.py's bound (one bf16 rounding of each result, the
+# hi + lo residual of P and dS, delta from the bf16 o, f32 atomics in
+# another order)
+BWD_TOL = 2e-2
+BWD_TIMED = [(BWD_CASES[0], "_train", 20), (BWD_CASES[1], "_granite_train", 20)]
 L2_FLUSH_BYTES = 64 << 20  # written between calls: more than the 50 MB L2
 # The kernel and the plain version both accumulate in f32 and differ in
 # the order of summation: 2e-5 at f32 (tests/test_kernels.py's bound).  At
@@ -347,22 +372,15 @@ CE_TOL = dict(rtol=1e-5, atol=1e-4)
 
 BATCH, PROMPT, NEW_TOKENS = 4, 512, 32
 # the serving paths, each with its kernels' launches per prefill
-PATHS = [
-    ("olmo-1b", {"swa_flash": 16, "ssd_intra_chunk": 0, "fused_ce_stats": 0,
-                 "fingerprint_u32": 0}),
-    ("mamba2-130m", {"swa_flash": 0, "ssd_intra_chunk": 24,
-                     "fused_ce_stats": 0, "fingerprint_u32": 0}),
-    ("zamba2-1.2b", {"swa_flash": 6, "ssd_intra_chunk": 38,
-                     "fused_ce_stats": 0, "fingerprint_u32": 0}),
-    ("granite-moe-3b-a800m", {"swa_flash": 32, "ssd_intra_chunk": 0,
-                              "fused_ce_stats": 0, "fingerprint_u32": 0}),
-    ("h2o-danube-3-4b", {"swa_flash": 24, "ssd_intra_chunk": 0,
-                         "fused_ce_stats": 0, "fingerprint_u32": 0}),
-    ("whisper-base", {"swa_flash": 6, "ssd_intra_chunk": 0,
-                      "fused_ce_stats": 0, "fingerprint_u32": 0}),
-    ("llama-3.2-vision-11b", {"swa_flash": 40, "ssd_intra_chunk": 0,
-                              "fused_ce_stats": 0, "fingerprint_u32": 0}),
-]
+PATHS = [(arch, dict(zip(("swa_flash", "ssd_intra_chunk", "fused_ce_stats",
+                          "fingerprint_u32", "swa_flash_bwd"), counts)))
+         for arch, counts in (("olmo-1b", (16, 0, 0, 0, 0)),
+                              ("mamba2-130m", (0, 24, 0, 0, 0)),
+                              ("zamba2-1.2b", (6, 38, 0, 0, 0)),
+                              ("granite-moe-3b-a800m", (32, 0, 0, 0, 0)),
+                              ("h2o-danube-3-4b", (24, 0, 0, 0, 0)),
+                              ("whisper-base", (6, 0, 0, 0, 0)),
+                              ("llama-3.2-vision-11b", (40, 0, 0, 0, 0)))]
 # the paths whose traffic is not (BATCH, PROMPT): h2o-danube-3-4b serves a
 # prompt of 6,144 tokens, past its 4,096-token window, at batch 2
 SERVE_SHAPES = {"h2o-danube-3-4b": (2, 6144)}
@@ -421,12 +439,14 @@ VLM_TRAIN_PATH = "vlm-train"
 # (512, 51865) head is copied for TMA on every slice, as granite's.
 TRAIN_SPECS = {
     TRAIN_PATH: dict(arch="olmo-1b", phase="4",
-                     per_slice={"swa_flash": 32, "fused_ce_stats": 1},
+                     per_slice={"swa_flash": 32, "swa_flash_bwd": 16,
+                                "fused_ce_stats": 1},
                      leaves=8, named=(), first_loss=(10.83, 11.6),
                      tol=TRAIN_TOL, f32_firm="|g| >= 1e-6"),
     HYBRID_TRAIN_PATH: dict(arch="zamba2-1.2b", phase="8",
                             per_slice={"ssd_intra_chunk": 76,
-                                       "swa_flash": 12, "fused_ce_stats": 1},
+                                       "swa_flash": 12, "swa_flash_bwd": 6,
+                                       "fused_ce_stats": 1},
                             leaves=21, named=("blocks/ssm/A_log",
                                               "shared_attn/attn/wq",
                                               "shared_attn/mlp/wg", "head"),
@@ -436,7 +456,8 @@ TRAIN_SPECS = {
                             check_layers=7),
     MOE_TRAIN_PATH: dict(arch="granite-moe-3b-a800m", phase="9",
                          donate=True,
-                         per_slice={"swa_flash": 64, "fused_ce_stats": 1},
+                         per_slice={"swa_flash": 64, "swa_flash_bwd": 32,
+                                    "fused_ce_stats": 1},
                          copies_per_slice={"fused_ce_stats": 1},
                          leaves=13, named=("blocks/moe/router",
                                            "blocks/moe/wi", "blocks/moe/wg",
@@ -446,7 +467,8 @@ TRAIN_SPECS = {
                          f32_firm="the gradients agree to 1e-3 relative",
                          check_dtype="float32"),
     AUDIO_TRAIN_PATH: dict(arch="whisper-base", phase="10",
-                           per_slice={"swa_flash": 12, "fused_ce_stats": 1},
+                           per_slice={"swa_flash": 12, "swa_flash_bwd": 6,
+                                      "fused_ce_stats": 1},
                            copies_per_slice={"fused_ce_stats": 1},
                            leaves=33, named=("cross/gate", "cross/attn/wk",
                                              "encoder/blocks/attn/wq",
@@ -474,7 +496,8 @@ TRAIN_SPECS = {
     # fit beside a step.
     VLM_TRAIN_PATH: dict(arch="llama-3.2-vision-11b", phase="12", layers=5,
                          donate=True,
-                         per_slice={"swa_flash": 10, "fused_ce_stats": 1},
+                         per_slice={"swa_flash": 10, "swa_flash_bwd": 5,
+                                    "fused_ce_stats": 1},
                          leaves=19, named=("cross/gate", "cross/attn/wk",
                                            "projector", "head"),
                          first_loss=(12.2, 12.95),
@@ -617,6 +640,20 @@ def ssd_bound(torch, bc, q, h, p, n, dtype):
                         dtype)
 
 
+def attention_bwd_bound(torch, b, s, h, d, window):
+    """Least time for ``swa_flash_bwd`` in bf16 on an H100 SXM (data
+    sheet), from the op's formula (``swa_attention/ops.py::
+    swa_flash_bwd_cost``: its five products, the recomputed Q K^T among
+    them), and (ms, by) of the least work alone: the four products dV, dP,
+    dQ, dK, as ``bench/costs.py::attention_bwd`` counts them."""
+    from repro_torch.kernels.swa_attention.ops import swa_flash_bwd_cost
+
+    cost = swa_flash_bwd_cost(b, s, h, d, window, 2)
+    least = cost._replace(flops=cost.flops * 4 // 5)
+    return (_dtype_bound(torch, cost, torch.bfloat16),
+            _dtype_bound(torch, least, torch.bfloat16))
+
+
 def _opcheck(torch, name, args):
     """``torch.library.opcheck`` of ``repro_torch::<name>`` on CUDA inputs:
     its schema, and its fake implementation's outputs against the kernel's
@@ -707,6 +744,76 @@ def phase_kernel(torch, swa_attention, swa_attention_ref):
                       f"library_ms{key}": library_ms})
         del q, k, v, qt, kt, vt, sdpa_kw
         torch.cuda.empty_cache()
+    return stats
+
+
+def phase_bwd_kernel(torch, swa_flash, swa_flash_bwd, swa_attention_bwd_ref):
+    print("\n== phase 2e: swa_flash_bwd against the plain backward on the "
+          "card", flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def inputs(b, s, h, d, w):
+        q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+        o, lse = swa_flash(q, k, v, window=w)
+        return q, k, v, o, do, lse
+
+    stats = {}
+    for b, s, h, d, w in BWD_CASES:
+        q, k, v, o, do, lse = inputs(b, s, h, d, w)
+        before = swa_flash_bwd.launches
+        got = swa_flash_bwd(q, k, v, o, do, lse, window=w)
+        torch.cuda.synchronize()
+        if swa_flash_bwd.launches != before + 1:
+            raise AssertionError("swa_flash_bwd did not count its launch")
+        want = swa_attention_bwd_ref(q, k, v, do, w)
+        errs = []
+        for name, a, r in zip(("dq", "dk", "dv"), got, want):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"non-finite {name} at {(b, s, h, d, w)}")
+            scale = r.float().abs().max().item()
+            errs.append((a.float() - r.float()).abs().max().item() / scale)
+        print(f"B={b} S={s} H={h} D={d} window={w}: max |kernel - plain| / "
+              f"max |plain| of dq, dk, dv = {errs!r} (bound {BWD_TOL})",
+              flush=True)
+        if max(errs) > BWD_TOL:
+            raise AssertionError("swa_flash_bwd disagrees with the plain "
+                                 "backward")
+        stats.setdefault("max_abs_err", max(errs))
+        del q, k, v, o, do, lse, got, want
+    b, s, h, d, w = BWD_CASES[5]
+    _opcheck(torch, "swa_flash_bwd", (*inputs(b, s, h, d, w), w))
+
+    for case, key, iters in BWD_TIMED:
+        b, s, h, d, w = case
+        q, k, v, o, do, lse = inputs(*case)
+        fn = lambda: swa_flash_bwd(q, k, v, o, do, lse, window=w)  # noqa: E731
+        kernel_ms = time_ms(torch, fn, iters)
+        plain_ms = time_ms(torch, lambda: swa_attention_bwd_ref(q, k, v, do, w),
+                           max(3, iters // 10), 1)
+        kernel_ms_2 = time_ms(torch, fn, iters)
+        dev_ms = device_ms(torch, fn, "bwd_", iters)
+        (bound_ms, bound_by), (least_ms, _) = attention_bwd_bound(
+            torch, b, s, h, d, w)
+        print(f"times at B={b} S={s} H={h} D={d} window={w} bfloat16 (mean of "
+              f"back-to-back calls of the three kernels): swa_flash_bwd "
+              f"{kernel_ms!r} ms then {kernel_ms_2!r} ms, device time by the "
+              f"profiler {dev_ms!r} ms; plain backward {plain_ms!r} ms; bound "
+              f"{bound_ms!r} ms ({bound_by}, the op's five products), "
+              f"{least_ms!r} ms for the four of the least work; no PyTorch "
+              f"call the port may use computes it", flush=True)
+        stats.update({f"ms{key}": (kernel_ms + kernel_ms_2) / 2,
+                      f"ms{key}_device": dev_ms,
+                      f"plain_ms{key}": plain_ms,
+                      f"bound_ms{key}": bound_ms,
+                      f"bound_by{key}": bound_by,
+                      f"least_work_ms{key}": least_ms})
+        del q, k, v, o, do, lse
+        torch.cuda.empty_cache()
+    stats.update(ms=stats["ms_train"], plain_ms=stats["plain_ms_train"],
+                 bound_ms=stats["bound_ms_train"],
+                 bound_by=stats["bound_by_train"], library_ms=None)
     return stats
 
 
@@ -1004,24 +1111,34 @@ def plain_versions():
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
     from repro_torch.kernels.swa_attention import ops as swa_ops
-    from repro_torch.kernels.swa_attention.ref import swa_attention_ref
+    from repro_torch.kernels.swa_attention.ref import (swa_attention_bwd_ref,
+                                                       swa_attention_lse_ref)
 
     def swa_plain(q, k, v, *, window):
         # one batch row at a time, as the plain backward runs: the (H, S, S)
         # f32 scores of one row bound its memory (llama-3.2-vision's 32
         # heads at S 4096: 2.1 GB a buffer, 8.6 GB for a batch of 4)
-        return torch.cat([swa_attention_ref(
-            *(t[i:i + 1].transpose(1, 2) for t in (q, k, v)),
-            window=window).transpose(1, 2) for i in range(q.shape[0])])
+        rows = [swa_attention_lse_ref(
+            *(t[i:i + 1].transpose(1, 2) for t in (q, k, v)), window=window)
+            for i in range(q.shape[0])]
+        return (torch.cat([o.transpose(1, 2) for o, _ in rows]),
+                torch.cat([lse for _, lse in rows]))
 
-    saved = ce_ops.fused_ce_stats, swa_ops.swa_flash, ssd_ops.ssd_intra_chunk
-    ce_ops.fused_ce_stats, swa_ops.swa_flash, ssd_ops.ssd_intra_chunk = (
-        fused_ce_stats_ref, swa_plain, ssd_intra_chunk_ref)
+    def swa_bwd_plain(q, k, v, o, dout, lse, *, window):
+        return swa_attention_bwd_ref(q, k, v, dout, window)
+
+    names = ((ce_ops, "fused_ce_stats", fused_ce_stats_ref),
+             (swa_ops, "swa_flash", swa_plain),
+             (swa_ops, "swa_flash_bwd", swa_bwd_plain),
+             (ssd_ops, "ssd_intra_chunk", ssd_intra_chunk_ref))
+    saved = [getattr(module, name) for module, name, _ in names]
+    for module, name, plain in names:
+        setattr(module, name, plain)
     try:
         yield
     finally:
-        ce_ops.fused_ce_stats, swa_ops.swa_flash, ssd_ops.ssd_intra_chunk = \
-            saved
+        for (module, name, _), fn in zip(names, saved):
+            setattr(module, name, fn)
 
 
 def _first_batch_grads(torch, rt, loss_and_grads, global_norm):
@@ -1722,6 +1839,7 @@ def phase_migrate(torch, card, counters, job, step_s):
     if not rel <= 1e-6:
         raise AssertionError("the resumed job's loss differs")
     want = {"swa_flash": 2 * cfg.num_layers * (splice_quiesce * len(recs) + 2),
+            "swa_flash_bwd": cfg.num_layers * (splice_quiesce * len(recs) + 2),
             "ssd_intra_chunk": 0,
             "fused_ce_stats": splice_quiesce * len(recs) + 2,
             "fingerprint_u32": 2 * len(before)}
@@ -2155,7 +2273,8 @@ def main() -> int:
     from repro_torch.kernels.ssd_scan import ssd, ssd_chunked
     from repro_torch.kernels.swa_attention import swa_attention
     from repro_torch.kernels.swa_attention import swa
-    from repro_torch.kernels.swa_attention.ref import swa_attention_ref
+    from repro_torch.kernels.swa_attention.ref import (swa_attention_bwd_ref,
+                                                       swa_attention_ref)
     from repro_torch.models import decode_step_fn, init_params, prefill_fn
     from repro_torch.serving.engine import ServingEngine
 
@@ -2168,7 +2287,7 @@ def main() -> int:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}; card: {card}", flush=True)
     print(f"host memory: {_host_memory()} bytes", flush=True)
-    sources = (swa.SOURCE, ssd.SOURCE, ce.SOURCE, FP_SOURCE)
+    sources = (swa.SOURCE, swa.BWD_SOURCE, ssd.SOURCE, ce.SOURCE, FP_SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(_build.build, sources))
@@ -2179,11 +2298,14 @@ def main() -> int:
         print(lib.with_suffix(".log").read_text(), flush=True)
 
     swa_stats = phase_kernel(torch, swa_attention, swa_attention_ref)
+    bwd_stats = phase_bwd_kernel(torch, swa.swa_flash, swa.swa_flash_bwd,
+                                 swa_attention_bwd_ref)
     ssd_stats = phase_ssd_kernel(torch, ssd.ssd_intra_chunk, ssd_chunked,
                                  ssd_ref)
     ce_stats = phase_ce_kernel(torch, ce, ce_ref, fused_cross_entropy)
     fp_stats = phase_fingerprint_kernel(torch, fingerprint_u32, fp_ops, fp_ref)
     counters = {"swa_flash": swa.swa_flash,
+                "swa_flash_bwd": swa.swa_flash_bwd,
                 "ssd_intra_chunk": ssd.ssd_intra_chunk,
                 "fused_ce_stats": ce.fused_ce_stats,
                 "fingerprint_u32": fingerprint_u32}
@@ -2223,6 +2345,10 @@ def main() -> int:
             ("swa_flash", "cuda",
              "src/repro_torch/kernels/swa_attention/csrc/swa_flash.cu",
              "src/repro/kernels/swa_attention/swa.py:89", swa_stats),
+            ("swa_flash_bwd", "cuda",
+             "src/repro_torch/kernels/swa_attention/csrc/swa_flash_bwd.cu",
+             "none: JAX differentiates its jnp attention through XLA",
+             bwd_stats),
             ("ssd_intra_chunk", "cuda",
              "src/repro_torch/kernels/ssd_scan/csrc/ssd_intra_chunk.cu",
              "src/repro/kernels/ssd_scan/ssd.py:58", ssd_stats),

@@ -1,9 +1,10 @@
-"""The four kernels as ``torch.library`` ops, and each op's cost formula.
+"""The five kernels as ``torch.library`` ops, and each op's cost formula.
 
 Each kernel is one op in the ``repro_torch`` namespace
-(``torch.ops.repro_torch.swa_flash``, ``.ssd_intra_chunk``,
-``.fused_ce_stats``, ``.fingerprint_u32``), defined beside its wrapper in
-its ``ops.py`` by ``kernel_op``, with three implementations:
+(``torch.ops.repro_torch.swa_flash``, ``.swa_flash_bwd``,
+``.ssd_intra_chunk``, ``.fused_ce_stats``, ``.fingerprint_u32``), defined
+beside its wrapper in its ``ops.py`` by ``kernel_op``, with three
+implementations:
 
 - CUDA tensors: the hand-written kernel's ctypes wrapper, which launches
   (and counts the launch) or raises;
@@ -16,8 +17,10 @@ its ``ops.py`` by ``kernel_op``, with three implementations:
 No other device has an implementation: the op raises there.  No DTensor
 strategy is registered: every caller runs the op on its local shards
 inside ``parallel/constraints.shard_map``.  The ops carry no autograd
-formula; the autograd functions of the ``ops.py`` modules call them in
-their forward and keep their plain backward.
+formula; the autograd functions of the ``ops.py`` modules call them
+(``swa_attention``'s calls ``swa_flash`` in its forward and
+``swa_flash_bwd`` in its bf16 backward; ``fused_ce``'s keeps a plain
+backward).
 
 ``COSTS`` maps each op's name to its formula: the work of one call from
 its arguments' shapes.  ``analysis/op_cost.py`` counts it in place of its

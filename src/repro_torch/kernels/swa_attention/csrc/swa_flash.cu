@@ -5,7 +5,10 @@
 // It computes the same function: scores in f32, scaled by 1/sqrt(D); key j
 // is seen by query i when j <= i and, for window > 0, j > i - window;
 // masked scores are -1e30 (not -inf) and the softmax denominator is
-// clamped at 1e-30; m, l and the output accumulator stay in f32.  Any head
+// clamped at 1e-30; m, l and the output accumulator stay in f32.  Beside o
+// it writes each query row's log-sum-exp of its scaled scores, m + log l in
+// natural log, an f32 (B, H, S) from which the backward (`swa_flash_bwd.cu`)
+// recomputes P; o does not depend on it.  Any head
 // dim D <= 128 that is a multiple of 8 (the Pallas kernel takes any D; the
 // reference serves 64, 80, 120 and 128).
 //
@@ -86,6 +89,7 @@ constexpr int BKV = 64;
 static_assert(BQ == BKV, "the f32 kernel loads 64-row tiles of q, k, v");
 constexpr int F32_THREADS = 256;
 constexpr float NEG_INF = -1e30f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Strides {  // element strides of the b, s and h axes; d is contiguous
   long long b, s, h;
@@ -125,7 +129,8 @@ __global__ void __launch_bounds__(F32_THREADS)
     swa_flash_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
-                         int seq, int heads, int head_dim, Strides sq,
+                         float* __restrict__ lse, int seq, int heads,
+                         int head_dim, Strides sq,
                          Strides sk, Strides sv, Strides so, int window,
                          float scale) {
   static_assert(D16 % 16 == 0, "D16 is a multiple of 16");
@@ -247,6 +252,8 @@ __global__ void __launch_bounds__(F32_THREADS)
     for (int j = 0; j < DJ; ++j)
       if (tx + 16 * j < head_dim)
         ob[qi * so.s + tx + 16 * j] = acc[i][j] / denom;
+    if (tx == 0)
+      lse[static_cast<long long>(bh) * seq + qi] = m[i] + logf(denom);
   }
 }
 
@@ -282,191 +289,14 @@ __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
   return *reinterpret_cast<uint32_t*>(&x);
 }
 
-// S (+)= Q K^T for one 16-deep step: m64n64k16, A and B K-major in shared
-// memory; scale_d = 0 overwrites d.
-__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t desc_a,
-                                         uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, "
-      "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
-      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31}, %32, %33, p, 1, 1, 0, %35; "
-      "\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(0));
-}
-
-// O += P V for 16 keys: m64nNk16, A (P) from registers, B (V) MN-major in
-// shared memory (the transposed-B form).
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t desc_b, int scale_d) {
-  static_assert(N % 16 == 0 && N >= 16 && N <= 128, "N in 16..128");
-  if constexpr (false) {
-  } else if constexpr (N == 16) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, "
-        "%3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1; "
-        "\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-          "r"(scale_d));
-  } else if constexpr (N == 32) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, "
-        "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, "
-        "%17, %18, %19}, %20, p, 1, 1, 1; "
-        "\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-          "r"(scale_d));
-  } else if constexpr (N == 48) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {%0, %1, %2, "
-        "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
-        "%17, %18, %19, %20, %21, %22, %23}, {%24, %25, %26, %27}, %28, p, "
-        "1, 1, 1; "
-        "\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-          "r"(scale_d));
-  } else if constexpr (N == 64) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, "
-        "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
-        "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-        "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1; "
-        "\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-          "r"(scale_d));
-  } else if constexpr (N == 80) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {%0, %1, %2, "
-        "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
-        "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, "
-        "%43}, %44, p, 1, 1, 1; "
-        "\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-          "r"(scale_d));
-  } else if constexpr (N == 96) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {%0, %1, %2, "
-        "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
-        "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-        "%43, %44, %45, %46, %47}, {%48, %49, %50, %51}, %52, p, 1, 1, 1; "
-        "\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-          "r"(scale_d));
-  } else if constexpr (N == 112) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {%0, %1, %2, "
-        "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
-        "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-        "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55}, "
-        "{%56, %57, %58, %59}, %60, p, 1, 1, 1; "
-        "\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-          "r"(scale_d));
-  } else if constexpr (N == 128) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, "
-        "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
-        "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-        "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, "
-        "%68, p, 1, 1, 1; "
-        "\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-          "r"(scale_d));
-  }
-}
-
 template <int D16>
 __global__ void __launch_bounds__(BF16_THREADS, 1)
     swa_flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
-                          bf16* __restrict__ o, int seq, int heads,
-                          int head_dim, Strides so, int window,
-                          float scale_log2) {
+                          bf16* __restrict__ o, float* __restrict__ lse,
+                          int seq, int heads, int head_dim, Strides so,
+                          int window, float scale_log2) {
   constexpr int NB = boxes<D16>();
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t sq = (hopper::smem_addr(smem_raw) + 1023) & ~1023u;
@@ -565,7 +395,7 @@ __global__ void __launch_bounds__(BF16_THREADS, 1)
         const uint32_t a = sq + (kk / 4) * Q_BOX + wg * (Q_BOX / 2) +
                            (kk % 4) * 32;
         const uint32_t bk = sk + (st * NB + kk / 4) * KV_BOX + (kk % 4) * 32;
-        wgmma_qk(d, hopper::desc_sw128(a, 0, 1024),
+        hopper::wgmma_ss64<0, 0>(d, hopper::desc_sw128(a, 0, 1024),
                  hopper::desc_sw128(bk, 0, 1024), kk > 0);
       }
       hopper::wgmma_commit();
@@ -643,8 +473,8 @@ __global__ void __launch_bounds__(BF16_THREADS, 1)
       for (int kk = 0; kk < 4; ++kk) {
         const uint64_t dv = hopper::desc_sw128(
             sv + stage * NB * KV_BOX + kk * 2048, KV_BOX, 1024);
-        wgmma_rs<D16>(acc, hi[kk], dv, 1);
-        wgmma_rs<D16>(acc, lo[kk], dv, 1);
+        hopper::wgmma_rs<D16>(acc, hi[kk], dv, 1);
+        hopper::wgmma_rs<D16>(acc, lo[kk], dv, 1);
       }
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
@@ -681,6 +511,14 @@ __global__ void __launch_bounds__(BF16_THREADS, 1)
         *reinterpret_cast<__nv_bfloat162*>(ob + r1 * so.s + col) =
             __floats2bfloat162_rn(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
     }
+    // the row's log-sum-exp of the scaled scores, m + log2 l in log2 units,
+    // as natural log; its address from blockIdx.x and not bh, which would
+    // then stay live through the loop (8% of the kernel's time at D 128)
+    if (tc == 0) {
+      float* lb = lse + static_cast<long long>(blockIdx.x) * seq;
+      if (r0 < seq) lb[r0] = (m[0] - __log2f(inv0)) * LN2;
+      if (r1 < seq) lb[r1] = (m[1] - __log2f(inv1)) * LN2;
+    }
   }
 }
 
@@ -690,7 +528,7 @@ __global__ void __launch_bounds__(BF16_THREADS, 1)
 
 template <int D16>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
-               int batch, int seq, int heads, int head_dim,
+               void* lse, int batch, int seq, int heads, int head_dim,
                const long long* st, int window, float scale,
                cudaStream_t stream) {
   constexpr size_t smem = f32_smem_bytes<D16>();
@@ -701,8 +539,9 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   const dim3 grid(batch * heads, (seq + BQ - 1) / BQ);
   swa_flash_f32_kernel<D16><<<grid, F32_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), seq, heads,
-      head_dim, Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), seq, heads, head_dim,
+      Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
       Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, window,
       scale);
   return static_cast<int>(cudaGetLastError());
@@ -710,7 +549,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 
 template <int D16>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                int batch, int seq, int heads, int head_dim,
+                void* lse, int batch, int seq, int heads, int head_dim,
                 const long long* st, int window, float scale,
                 cudaStream_t stream) {
   // tensor maps (D, S, H, B) of q, k and v: boxes of 64 columns by the
@@ -738,21 +577,22 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(batch * heads, (seq + BF16_BQ - 1) / BF16_BQ);
   swa_flash_bf16_kernel<D16><<<grid, BF16_THREADS, smem, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<bf16*>(o), seq, heads, head_dim,
+      maps[0], maps[1], maps[2], static_cast<bf16*>(o),
+      static_cast<float*>(lse), seq, heads, head_dim,
       Strides{st[9], st[10], st[11]}, window, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D16>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
-           int batch, int seq, int heads, int head_dim, const long long* st,
-           int window, float scale, cudaStream_t stream) {
+           void* lse, int batch, int seq, int heads, int head_dim,
+           const long long* st, int window, float scale, cudaStream_t stream) {
   if (dtype == 0)
-    return launch_f32<D16>(q, k, v, o, batch, seq, heads, head_dim, st,
+    return launch_f32<D16>(q, k, v, o, lse, batch, seq, heads, head_dim, st,
                            window, scale, stream);
   if (dtype == 1)
-    return launch_bf16<D16>(q, k, v, o, batch, seq, heads, head_dim, st,
-                            window, scale, stream);
+    return launch_bf16<D16>(q, k, v, o, lse, batch, seq, heads, head_dim,
+                            st, window, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -760,6 +600,8 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
 
 // q, k, v, o: (batch, seq, heads, head_dim) with a contiguous last axis;
 // strides: 12 element strides, the (b, s, h) strides of q, k, v, o in turn.
+// lse: a contiguous f32 (batch, heads, seq) that receives each query row's
+// log-sum-exp of its scaled, masked scores (natural log).
 // dtype: 0 float32, 1 bfloat16; head_dim a multiple of 8 in [8, 128].  For
 // bf16 the q, k, v strides are multiples of 8 elements and the addresses of
 // 16 bytes (TMA's rule).  `scale` multiplies the scores.  Launches on
@@ -767,7 +609,7 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
 // cudaErrorInvalidValue for arguments the kernels do not take.
 extern "C" int swa_flash_fwd(int dtype, int head_dim, const void* q,
                              const void* k, const void* v, void* o,
-                             int batch, int seq, int heads,
+                             void* lse, int batch, int seq, int heads,
                              const long long* strides, int window,
                              float scale, void* stream) {
   if (batch * heads == 0 || seq == 0) return 0;
@@ -776,8 +618,8 @@ extern "C" int swa_flash_fwd(int dtype, int head_dim, const void* q,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SWA_CASE(D16)                                                      \
   case D16:                                                                \
-    return launch<D16>(dtype, q, k, v, o, batch, seq, heads, head_dim,     \
-                       strides, window, scale, s);
+    return launch<D16>(dtype, q, k, v, o, lse, batch, seq, heads,         \
+                       head_dim, strides, window, scale, s);
   switch ((head_dim + 15) / 16 * 16) {
     SWA_CASE(16)
     SWA_CASE(32)

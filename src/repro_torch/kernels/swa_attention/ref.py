@@ -10,13 +10,10 @@ import torch
 NEG_INF = -1e30
 
 
-def swa_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      window: int = 0) -> torch.Tensor:
-    """q, k, v: (..., S, D) with the same sequence length; causal plus an
-    optional sliding window (query i sees keys in (i - window, i]).
-
-    Returns q's dtype.
-    """
+def _masked_scores(q: torch.Tensor, k: torch.Tensor,
+                   window: int) -> torch.Tensor:
+    """The f32 scores q k^T / sqrt(D), -1e30 where the causal (windowed)
+    mask hides a pair."""
     d = q.shape[-1]
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(d)
     sq, sk = q.shape[-2], k.shape[-2]
@@ -25,9 +22,28 @@ def swa_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask = kp <= qp
     if window > 0:
         mask &= kp > qp - window
-    s = s.masked_fill(~mask, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    return s.masked_fill(~mask, NEG_INF)
+
+
+def swa_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      window: int = 0) -> torch.Tensor:
+    """q, k, v: (..., S, D) with the same sequence length; causal plus an
+    optional sliding window (query i sees keys in (i - window, i]).
+
+    Returns q's dtype.
+    """
+    p = torch.softmax(_masked_scores(q, k, window), dim=-1)
     return torch.matmul(p, v.float()).to(q.dtype)
+
+
+def swa_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          window: int = 0):
+    """``swa_attention_ref``'s output and, beside it, each query row's
+    log-sum-exp of its scaled, masked f32 scores, (..., S) in f32 (natural
+    log): the pair the kernel ``swa_flash`` returns."""
+    s = _masked_scores(q, k, window)
+    o = torch.matmul(torch.softmax(s, dim=-1), v.float()).to(q.dtype)
+    return o, torch.logsumexp(s, dim=-1)
 
 
 def swa_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -19,12 +19,12 @@ of the full-size state is allocated.  ``analysis/op_cost.py`` counts the
 ops rank 0 runs, from its local shards (the mesh is symmetric), and the
 bytes live at once.
 
-The models call the four kernels through their ``torch.library`` ops
+The models call the five kernels through their ``torch.library`` ops
 (``kernels/_library.py``), which run their fake implementations on fake
 tensors: the trace holds what each kernel holds on the card (its
 outputs), where the plain versions would hold their whole score matrices,
-and ``op_cost.py`` counts each op by its formula (``swa_flash`` its
-causal pairs, not the dense S x S products).  So the trace plans the
+and ``op_cost.py`` counts each op by its formula (``swa_flash`` and
+``swa_flash_bwd`` their causal pairs, not the dense S x S products).  So the trace plans the
 kernel path the card runs, as JAX's dry-run lowers the path its TPU runs.
 
 The record has JAX's keys where they mean the same thing;

@@ -30,8 +30,11 @@ from repro_torch.kernels.ssd_scan.ref import (ssd_chunked_ref,
                                               ssd_sequential_ref)
 from repro_torch.kernels.ssd_scan.ssd import ssd_intra_chunk
 from repro_torch.kernels.swa_attention import swa_attention
-from repro_torch.kernels.swa_attention.ref import swa_attention_ref
-from repro_torch.kernels.swa_attention.swa import swa_flash
+from repro_torch.kernels.swa_attention import ops as swa_ops
+from repro_torch.kernels.swa_attention.ref import (swa_attention_bwd_ref,
+                                                   swa_attention_lse_ref,
+                                                   swa_attention_ref)
+from repro_torch.kernels.swa_attention.swa import swa_flash, swa_flash_bwd
 from repro_torch.models.frontend import synth_extra_inputs
 from repro_torch.training import build_train_step, init_train_state
 
@@ -393,29 +396,133 @@ def test_fused_ce_shard_stats_on_card():
 @pytest.mark.parametrize("b,s,h,d,w,dtype,tol", [
     (2, 512, 4, 128, 0, torch.float32, 1e-5),
     (1, 300, 2, 64, 96, torch.float32, 1e-5),
-    # the kernel's bf16 output is one rounding away from the plain one's
+    # bf16 through the backward kernel (``swa_flash_bwd``).  2e-2 of the
+    # largest entry: each of dq, dk, dv is one bf16 rounding (2^-9
+    # relative) from an f32 result on both sides; the kernel's f32 sums
+    # differ besides by the hi + lo residual of P and dS (about 2^-17 of
+    # each), by delta taken from the bf16 o, and by the f32 atomics of dq,
+    # added in an order that changes from run to run.
     (2, 512, 4, 128, 0, torch.bfloat16, 2e-2),
+    (2, 512, 4, 64, 0, torch.bfloat16, 2e-2),
+    # padded head dims (80: D16 80, 120: D16 128), ragged S, a window
+    (2, 300, 3, 80, 0, torch.bfloat16, 2e-2),
+    (2, 300, 3, 120, 100, torch.bfloat16, 2e-2),
+    (2, 300, 4, 64, 96, torch.bfloat16, 2e-2),
+    (3, 130, 2, 32, 0, torch.bfloat16, 2e-2),
+    (2, 1000, 2, 128, 256, torch.bfloat16, 2e-2),
+    # the training calls at S 4096: olmo-1b (16 heads of 128) and
+    # granite-moe-3b-a800m (24 heads of 64), one batch row
+    (1, 4096, 16, 128, 0, torch.bfloat16, 2e-2),
+    (1, 4096, 24, 64, 0, torch.bfloat16, 2e-2),
 ])
 def test_swa_attention_gradients_on_card(b, s, h, d, w, dtype, tol):
-    """dq, dk, dv through the autograd function (the kernel forward, the
-    plain recomputing backward) against autograd through the plain
-    version; each to ``tol`` of the largest entry."""
+    """dq, dk, dv through the autograd function (the kernel forward; the
+    backward kernel in bf16, the plain recomputing backward in f32)
+    against autograd through the plain version; each to ``tol`` of the
+    largest entry.  A bf16 call launches ``swa_flash_bwd`` exactly once."""
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(2)
     q, k, v, do = (torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
                    for _ in range(4))
     ins = [x.detach().requires_grad_() for x in (q, k, v)]
-    before = swa_flash.launches
+    before = swa_flash.launches, swa_flash_bwd.launches
     swa_attention(*ins, window=w).backward(do)
-    assert swa_flash.launches == before + 1
+    torch.cuda.synchronize()
+    assert swa_flash.launches == before[0] + 1
+    assert swa_flash_bwd.launches == before[1] + (dtype == torch.bfloat16)
     refs = [x.detach().requires_grad_() for x in (q, k, v)]
     swa_attention_ref(*(x.transpose(1, 2) for x in refs),
                       window=w).transpose(1, 2).backward(do)
     for got, ref in zip(ins, refs):
         assert got.grad.dtype == dtype
+        assert torch.isfinite(got.grad).all()
         scale = ref.grad.float().abs().max()
         torch.testing.assert_close(got.grad.float() / scale,
                                    ref.grad.float() / scale, rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d,w,dtype", [
+    (2, 512, 4, 128, 0, torch.bfloat16),
+    (2, 300, 3, 80, 100, torch.bfloat16),
+    (1, 4096, 16, 128, 0, torch.bfloat16),
+    (2, 300, 3, 64, 96, torch.float32),
+])
+def test_swa_flash_lse_matches_plain_on_card(b, s, h, d, w, dtype):
+    """The forward's log-sum-exp against the plain one over the same
+    scores, to 1e-5 relative (and 1e-5 absolute, for a row whose lse is
+    near 0): both sum f32 products of the same inputs, in other orders."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = (torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    o, lse = swa_flash(q, k, v, window=w)
+    torch.cuda.synchronize()
+    _, want = swa_attention_lse_ref(
+        *(x.transpose(1, 2) for x in (q, k, v)), window=w)
+    assert o.shape == q.shape
+    assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_swa_flash_bwd_rejects_what_it_does_not_take():
+    """f32 and a lse of another shape raise; nothing launches."""
+    dev = _card()
+    q = torch.zeros(1, 64, 2, 64, device=dev)
+    lse = torch.zeros(1, 2, 64, device=dev)
+    before = swa_flash_bwd.launches
+    with pytest.raises(ValueError, match="bfloat16"):
+        swa_flash_bwd(q, q, q, q, q, lse, window=0)
+    qb = q.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="lse"):
+        swa_flash_bwd(qb, qb, qb, qb, qb, lse[:, :1], window=0)
+    assert swa_flash_bwd.launches == before
+
+
+@pytest.mark.cuda
+def test_bf16_smoke_train_step_runs_the_backward_kernel():
+    """One spliced step (splice 2) of the olmo smoke config in its bf16 on
+    the card launches ``swa_flash_bwd`` once per layer and slice (and
+    ``swa_flash`` twice, under remat), and its loss and gradient norm
+    equal those of the same step with the plain backward in the kernel's
+    place (the ops' CUDA implementation calls the wrapper by the module's
+    name).  The loss equals bit for bit (the forward is the same); the
+    gradient norm to 2e-3: each layer's dq, dk, dv are one bf16 rounding
+    from the plain ones, at random signs over many entries."""
+    dev = _card()
+    cfg = get_smoke_config("olmo-1b")
+    assert cfg.dtype == "bfloat16"
+    tcfg = TrainConfig(total_steps=40, warmup_steps=2, learning_rate=1e-3)
+    state = init_train_state(cfg, tcfg, device="cpu")
+    tokens, labels = DataPipeline(cfg.vocab_size, 128, 4, 4).next_batch()
+    batch = {"tokens": torch.as_tensor(tokens, device=dev).long(),
+             "labels": torch.as_tensor(labels, device=dev).long()}
+    step = build_train_step(cfg, tcfg, splice=2)
+    out = []
+    for plain in (False, True):
+        card_state = train_state_from_jax(train_state_to_numpy(state), cfg,
+                                          device=dev)
+        saved = swa_ops.swa_flash_bwd
+        if plain:
+            swa_ops.swa_flash_bwd = (
+                lambda q, k, v, o, dout, lse, *, window:
+                swa_attention_bwd_ref(q, k, v, dout, window))
+        before = swa_flash.launches, swa_flash_bwd.launches
+        try:
+            _, metrics = step(card_state, batch)
+            torch.cuda.synchronize()
+        finally:
+            swa_ops.swa_flash_bwd = saved
+        launched = (swa_flash.launches - before[0],
+                    swa_flash_bwd.launches - before[1])
+        assert launched == (2 * 2 * cfg.num_layers,
+                            0 if plain else 2 * cfg.num_layers)
+        out.append((metrics["loss"].item(), metrics["grad_norm"].item()))
+    (loss, norm), (loss_p, norm_p) = out
+    assert np.isfinite([loss, norm]).all()
+    assert loss == loss_p
+    np.testing.assert_allclose(norm, norm_p, rtol=2e-3)
 
 
 @pytest.mark.cuda

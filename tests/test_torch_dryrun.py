@@ -158,24 +158,27 @@ def test_per_device_counts():
 def test_flops_match_jax_one_device():
     """The olmo smoke train step at batch 2 x 512 on one device, remat on:
     the port's count is JAX's ``analyze_hlo`` count plus exactly two
-    recompute terms, less exactly the masked products the kernel skips.
+    recompute terms, less exactly the masked products the kernels skip.
 
     At S = 512 JAX's 512-blocks and 128-token CE chunks pad nothing, so the
     two run the same products: per layer q/k/v/o projections and the MLP
     forward twice (remat) and backward, the tied head's logits and their
     two gradient products, and for attention 2 forward products (Q·Kᵀ,
-    P·V), 2 again under remat and 4 backward (dP, dV, dS·K, dSᵀ·Q).  The
-    port's plain attention backward (``swa_attention_bwd_ref``) recomputes
-    Q·Kᵀ once more: 2 layers x 2·B·H·S²·D = 2 x 2·2·4·512²·64 =
-    536,870,912 FLOPs.  The CE under a mesh (``fused_ce_shard_stats``)
-    keeps (lse, label logit) and not the logits, so its backward
-    recomputes them: 2·T·d·V = 2·1024·256·512 = 268,435,456 FLOPs.  The
-    forward attention is the ``repro_torch::swa_flash`` op, counted by its
-    formula over the causal pairs S(S+1)/2 where JAX's block multiplies
-    the whole S²: each of its 4 forward calls (2 layers, again under remat)
-    does 4·B·H·D·(S² - S(S+1)/2) = 4·2·4·64·130,816 = 267,911,168 FLOPs
-    fewer, 1,071,644,672 in all.  Bound: those terms exactly, to 1e-6 of
-    JAX's count."""
+    P·V), 2 again under remat and 4 backward (dP, dV, dS·K, dSᵀ·Q), each
+    on the whole S².  The port's attention backward is the
+    ``repro_torch::swa_flash_bwd`` op, counted by its formula: those 4
+    products and a recomputed Q·Kᵀ, all over the causal pairs S(S+1)/2 =
+    131,328.  The recompute adds 2 layers x 2·B·H·D·S(S+1)/2 =
+    2 x 2·2·4·64·131,328 = 268,959,744 FLOPs.  The CE under a mesh
+    (``fused_ce_shard_stats``) keeps (lse, label logit) and not the
+    logits, so its backward recomputes them: 2·T·d·V = 2·1024·256·512 =
+    268,435,456 FLOPs.  The forward attention is the
+    ``repro_torch::swa_flash`` op, counted by its formula over the causal
+    pairs: each of its 4 forward calls (2 layers, again under remat) does
+    4·B·H·D·(S² - S(S+1)/2) = 4·2·4·64·130,816 = 267,911,168 FLOPs fewer
+    than JAX's, and each of the 2 backward calls 8·B·H·D·(S² - S(S+1)/2)
+    = 535,822,336 fewer: 2,143,289,344 in all.  Bound: those terms
+    exactly, to 1e-6 of JAX's count."""
     seq, batch = 512, 2
     cfg = jax_smoke_config("olmo-1b")
     tcfg = JaxTrainConfig()
@@ -186,12 +189,15 @@ def test_flops_match_jax_one_device():
     want = analyze_hlo(hlo).flops
     rec = lower_smoke("olmo-1b", "train", (1, 1), False, seq, batch)
     assert not dist.is_initialized()
-    attention = cfg.num_layers * 2 * batch * cfg.num_heads * seq ** 2 * \
-        cfg.resolved_head_dim()
+    per_pair = batch * cfg.num_heads * cfg.resolved_head_dim()
+    pairs = seq * (seq + 1) // 2
+    attention = cfg.num_layers * 2 * per_pair * pairs
     logits = 2 * batch * seq * cfg.d_model * cfg.vocab_size
-    masked = 2 * cfg.num_layers * 4 * batch * cfg.num_heads * \
-        cfg.resolved_head_dim() * (seq ** 2 - seq * (seq + 1) // 2)
+    masked = cfg.num_layers * (2 * 4 + 8) * per_pair * (seq ** 2 - pairs)
+    assert (attention, logits, masked) == (268_959_744, 268_435_456,
+                                           2_143_289_344)
     assert rec["kernel_ops"]["swa_flash"] == 2 * cfg.num_layers
+    assert rec["kernel_ops"]["swa_flash_bwd"] == cfg.num_layers
     assert abs(rec["op_cost"]["flops"]
                - (want + attention + logits - masked)) <= 1e-6 * want
 

@@ -1,4 +1,4 @@
-"""The four kernels as ``torch.library`` ops (``repro_torch/kernels/
+"""The five kernels as ``torch.library`` ops (``repro_torch/kernels/
 _library.py``) on the CPU, where no kernel runs: the CPU implementation is
 the plain version and the fake one gives the kernel's output metadata.
 
@@ -8,9 +8,10 @@ the plain version and the fake one gives the kernel's output metadata.
 - each op's formula: ``fused_ce_stats``'s FLOPs equal to what ``OpCost``
   counts for its plain version; ``ssd_intra_chunk``'s equal to that less
   the two masked Q x Q products' upper triangle, which the plain version
-  computes and the kernel does not; ``swa_flash`` at 4 D pairs B H with
-  the exact causal (windowed) pairs; the bounds ``chip_smoke.py`` prints
-  equal to its formulas before they moved into the package;
+  computes and the kernel does not; ``swa_flash`` at 4 D pairs B H and
+  ``swa_flash_bwd`` at 10 D pairs B H with the exact causal (windowed)
+  pairs; the bounds ``chip_smoke.py`` prints equal to its formulas before
+  they moved into the package;
 - the planner traces the kernel path: an olmo smoke prefill on (1, 1)
   counts one ``swa_flash`` a layer and no softmax, and the attention core's
   live bytes on fake tensors grow as S, not S^2;
@@ -62,6 +63,10 @@ def _inputs(name):
     if name == "swa_flash":
         return (randn(2, 24, 2, 16), randn(2, 24, 2, 16), randn(2, 24, 2, 16),
                 8)
+    if name == "swa_flash_bwd":
+        q, k, v = (randn(2, 24, 2, 16).to(torch.bfloat16) for _ in range(3))
+        o, lse = swa_ops._plain(q, k, v, 8)
+        return q, k, v, o, randn(2, 24, 2, 16).to(torch.bfloat16), lse, 8
     if name == "ssd_intra_chunk":
         return (randn(3, 16, 2, 16), torch.nn.functional.softplus(
             randn(3, 16, 2)), -torch.exp(0.1 * randn(2)), randn(3, 16, 8),
@@ -72,7 +77,8 @@ def _inputs(name):
     return (fp_ops._flat_words(randn(1000)),)
 
 
-OPS = ["swa_flash", "ssd_intra_chunk", "fused_ce_stats", "fingerprint_u32"]
+OPS = ["swa_flash", "swa_flash_bwd", "ssd_intra_chunk", "fused_ce_stats",
+       "fingerprint_u32"]
 
 
 def _op(name):
@@ -109,8 +115,10 @@ def test_fake_matches_cpu(name):
 
 def test_meta_takes_the_fake():
     q = torch.empty(1, 8, 1, 8, device="meta")
-    out = _op("swa_flash")(q, q, q, 0)
+    out, lse = _op("swa_flash")(q, q, q, 0)
     assert out.device.type == "meta" and out.shape == q.shape
+    assert lse.device.type == "meta" and lse.shape == (1, 1, 8)
+    assert lse.dtype == torch.float32
 
 
 @pytest.mark.parametrize("name", OPS)
@@ -118,10 +126,13 @@ def test_cuda_implementation_has_no_fallback(name):
     """The op's CUDA implementation is the kernel's wrapper, which raises on
     a tensor that is not on a CUDA device instead of taking the plain
     version."""
-    module = {"swa_flash": swa_ops, "ssd_intra_chunk": ssd_ops,
-              "fused_ce_stats": ce_ops, "fingerprint_u32": fp_ops}[name]
+    module = {"swa_flash": swa_ops, "swa_flash_bwd": swa_ops,
+              "ssd_intra_chunk": ssd_ops, "fused_ce_stats": ce_ops,
+              "fingerprint_u32": fp_ops}[name]
+    kernel = swa_ops._bwd_kernel if name == "swa_flash_bwd" else \
+        module._kernel
     with pytest.raises(ValueError, match="CUDA"):
-        module._kernel(*_inputs(name))
+        kernel(*_inputs(name))
 
 
 def _counted(fn, *args):
@@ -164,6 +175,34 @@ def test_swa_formula(s, window):
     cost = _counted(_op("swa_flash"), q, q, q, window).cost
     assert cost.flops == 4 * d * pairs * b * h
     assert cost.bytes == cost.bytes_lower == 4 * b * s * h * d * 4
+
+
+@pytest.mark.parametrize("s,window", [(24, 0), (24, 8), (24, 24), (24, 40),
+                                      (1, 0)])
+def test_swa_bwd_formula(s, window):
+    """10 D pairs B H: the five products (Q K^T again, dP, dV, dK, dQ)
+    over the pairs counted by brute force over the mask; 8 bf16 tensors of
+    B S H D and the f32 log-sum-exp read or written once."""
+    b, h, d = 2, 3, 16
+    pairs = sum(min(i + 1, window) if window > 0 else i + 1
+                for i in range(s))
+    q = torch.zeros(b, s, h, d, dtype=torch.bfloat16)
+    lse = torch.zeros(b, h, s)
+    cost = _counted(_op("swa_flash_bwd"), q, q, q, q, q, lse, window).cost
+    assert cost.flops == 10 * d * pairs * b * h
+    assert cost.bytes == 8 * b * s * h * d * 2 + 4 * b * h * s
+
+
+def test_swa_bwd_formula_is_the_plain_count_on_the_pairs():
+    """The plain backward runs its five products on the whole S x S square
+    (``OpCost`` counts them); the formula counts the same five on the
+    causal pairs only."""
+    b, s, h, d = 2, 24, 3, 16
+    q = torch.randn(b, s, h, d)
+    plain = _counted(swa_ops.swa_attention_bwd_ref, q, q, q, q, 0).cost
+    assert plain.flops == 10 * d * s * s * b * h
+    assert swa_ops.swa_flash_bwd_cost(b, s, h, d, 0, 2).flops == \
+        plain.flops * swa_ops.causal_pairs(s, 0) // (s * s)
 
 
 def _old_bounds(torch, case):

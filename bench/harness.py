@@ -11,7 +11,8 @@ is new files and entries; nothing here names one.
 
 The program under test is ``repro_torch``'s elastic training job:
 ``core/elastic.py::ElasticRuntime.run_steps`` driving the spliced step of
-``training/step.py``.  The benchmark makes its state (``weights.py``) and
+``training/step.py``.  The benchmark makes its state (``weights.py``, in
+the layout of the configuration's family module in ``reference/``) and
 its batches (``traffic.py``) and hands them in.
 """
 from __future__ import annotations
@@ -23,6 +24,7 @@ import json
 import math
 import sys
 import time
+import typing
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
@@ -96,15 +98,34 @@ def metric_reader(name: str, root: Path = ROOT) -> Callable:
 
 
 # ------------------------------------------------------------- the program
-def program_config(cell: Cell):
-    """The port's ``ModelConfig`` and ``TrainConfig`` of the cell."""
-    from repro_torch.configs.base import ModelConfig, MoEConfig, TrainConfig
+def _typed(cls, values: dict):
+    """The dataclass ``cls`` from a JSON object: each field's value as its
+    declared type takes it, a nested object as the dataclass the field
+    declares (a plain dict where it declares none), every array as a
+    tuple."""
+    hints = typing.get_type_hints(cls)
+    return cls(**{k: _value(hints.get(k), v) for k, v in values.items()})
 
-    model = dict(cell.config["model"])
-    if model.get("moe"):
-        model["moe"] = MoEConfig(**model["moe"])
+
+def _value(hint, value):
+    if isinstance(value, list):
+        return tuple(_value(None, x) for x in value)
+    if isinstance(value, dict):
+        cls = next((t for t in (hint, *typing.get_args(hint))
+                    if dataclasses.is_dataclass(t)), None)
+        if cls is None:
+            return {k: _value(None, v) for k, v in value.items()}
+        return _typed(cls, value)
+    return value
+
+
+def program_config(cell: Cell):
+    """The port's ``ModelConfig`` (with its sub-configs) and
+    ``TrainConfig`` of the cell."""
+    from repro_torch.configs.base import ModelConfig, TrainConfig
+
     job = cell.job
-    return (ModelConfig(**model),
+    return (_typed(ModelConfig, cell.config["model"]),
             TrainConfig(**job["optim"], remat=job["remat"],
                         remat_policy=job["remat_policy"]))
 
@@ -118,7 +139,7 @@ def build(cell: Cell, seed: int, device):
     from repro_torch.core.elastic import ElasticRuntime
 
     cfg, tcfg = program_config(cell)
-    state = weights.train_state(cell.config["model"], seed, device)
+    state = weights.train_state(cell.config, seed, device)
     t = cell.traffic
     rt = ElasticRuntime(cfg, tcfg, t["world"], t["physical"],
                         t["global_batch"], t["seq_len"], state=state,
@@ -135,7 +156,6 @@ def first_steps(rt, cell: Cell, seed: int, device) -> dict:
     step, over 1 - beta1, over the clip's factor from the step's reported
     pre-clip norm), and each leaf's change over the steps, against the
     drawn weights."""
-    model = cell.config["model"]
     optim = cell.job["optim"]
     out = {"losses": [], "step_wall": []}
     for i in range(cell.job["check_steps"]):
@@ -149,11 +169,10 @@ def first_steps(rt, cell: Cell, seed: int, device) -> dict:
                 k: float(torch.linalg.vector_norm(m))
                 / (1 - optim["beta1"]) / clip
                 for k, m in _flat(rt.state["opt"]["m"]).items()}
-    shapes = dict(weights.leaves(weights.layout(model)))
+    init = weights.initial(cell.config, seed, device)
     with torch.no_grad():
         out["change"] = {
-            k: float(torch.linalg.vector_norm(
-                p - weights.draw(k, shapes[k], seed, device)))
+            k: float(torch.linalg.vector_norm(p - init(k)))
             for k, p in _flat(rt.state["params"]).items()}
     return out
 
@@ -168,7 +187,7 @@ def reference_readings(cell: Cell, seed: int, device, matmul: str = "f32",
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     model = cell.config["model"]
-    shapes = dict(weights.leaves(weights.layout(model)))
+    paths = [k for k, _ in weights.leaves(weights.layout(cell.config))]
     tokens = traffic.ZipfTokens(cell.traffic, model["vocab_size"], seed,
                                 device)
     batches = [tokens.batch(i) for i in range(cell.job["check_steps"])]
@@ -176,7 +195,7 @@ def reference_readings(cell: Cell, seed: int, device, matmul: str = "f32",
         batches = [(a[rows], b[rows]) for a, b in batches]
     return reference.load(cell.config).train(
         model, cell.config["reference"], cell.job["optim"],
-        lambda k: weights.draw(k, shapes[k], seed, device), list(shapes),
+        weights.initial(cell.config, seed, device), paths,
         batches, splice or cell.splice, matmul)
 
 

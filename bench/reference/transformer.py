@@ -31,11 +31,15 @@ its absolute maximum, as an fp8 training recipe does; the rest stays f32.
 Memory: each layer and the loss run under a checkpoint, and the attention
 of one sequence at a time under its own, so the largest buffers are one
 sequence's (heads, S, S) scores and one chunk of logits.
+
+The module also gives the family's parameter ``layout``.  It defines no
+``DRAWS`` and no ``step_flops``: its leaves take ``weights.draw``'s
+default rule, and its FLOPs are ``costs.step_flops``.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +48,45 @@ from torch.utils.checkpoint import checkpoint
 CE_ROWS = 4096      # logits rows the loss holds at once
 FP8 = {"e4m3": (torch.float8_e4m3fn, 448.0),
        "e5m2": (torch.float8_e5m2, 57344.0)}
+
+Shape = Tuple[int, ...]
+
+
+def _norm(model: dict, *lead: int) -> Optional[Dict[str, Shape]]:
+    if model["norm"] == "nonparametric_ln":
+        return None
+    if model["norm"] == "rmsnorm":
+        return {"scale": (*lead, model["d_model"])}
+    raise ValueError(f"norm {model['norm']!r}: the benchmark draws "
+                     f"nonparametric_ln and rmsnorm")
+
+
+def layout(model: dict) -> dict:
+    """The parameter tree of a dense or MoE transformer as the port holds
+    it: nested dicts of shapes, ``None`` for an absent norm, the layers
+    stacked on axis 0 of each block leaf."""
+    if model["arch_type"] not in ("dense", "moe"):
+        raise ValueError(f"arch_type {model['arch_type']!r}: the benchmark "
+                         f"draws dense and moe transformers")
+    d, v, n = model["d_model"], model["vocab_size"], model["num_layers"]
+    h, kvh, ff = model["num_heads"], model["num_kv_heads"], model["d_ff"]
+    hd = model.get("head_dim") or d // h
+    tree = {"embed": (v, d), "final_norm": _norm(model)}
+    if not model.get("tie_embeddings"):
+        tree["head"] = (d, v)
+    blocks = {"ln1": _norm(model, n),
+              "attn": {"wq": (n, d, h, hd), "wk": (n, d, kvh, hd),
+                       "wv": (n, d, kvh, hd), "wo": (n, h, hd, d)},
+              "ln2": _norm(model, n)}
+    if model["arch_type"] == "moe":
+        e = model["moe"]["num_experts"]
+        blocks["moe"] = {"router": (n, d, e), "wi": (n, e, d, ff),
+                         "wo": (n, e, ff, d), "wg": (n, e, d, ff)}
+    else:
+        blocks["mlp"] = {"wi": (n, d, ff), "wg": (n, d, ff),
+                         "wo": (n, ff, d)}
+    tree["blocks"] = blocks
+    return tree
 
 
 def _fp8(x: torch.Tensor, fmt: str) -> torch.Tensor:

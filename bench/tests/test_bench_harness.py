@@ -2,6 +2,8 @@
 refusals and its imports, and (on a card) a whole run at a small size."""
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -9,9 +11,12 @@ import shutil
 import subprocess
 import sys
 import time
+import types
+from typing import Optional, Tuple
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from _smoke import ROOT, cell
 from bench import costs, harness, trace as trace_lib, weights
@@ -83,13 +88,246 @@ def test_drawn_state_has_the_ports_layout(name):
     cfg, tcfg = harness.program_config(c)
     state = init_train_state(cfg, tcfg, device="meta")
     theirs = {k: tuple(v.shape) for k, v in weights.leaves(state["params"])}
-    ours = dict(weights.leaves(weights.layout(c.config["model"])))
+    ours = dict(weights.leaves(weights.layout(c.config)))
     assert theirs == ours
     assert {v.dtype for _, v in weights.leaves(state)} == {torch.float32,
                                                            torch.int32}
     # the port's count leaves the norms' scales out
     assert sum(math.prod(s) for k, s in ours.items()
                if not k.endswith("scale")) == cfg.param_count()
+
+
+# The leaves of the existing configurations at the CPU tests' sizes
+# (``_smoke.cell``), seed 3000000019, as the harness drew them before the
+# layouts and draws moved into the family modules: the first 16 hex digits
+# of the sha256 of each leaf's f32 bytes, and its first value.
+SEED = 3000000019
+PINNED = {
+    ("olmo1b-train-s1", "embed"): ("9e410888c9bbc63d", -0.007070150226354599),
+    ("olmo1b-train-s1", "blocks.attn.wo"): ("186a7defb9900cfe",
+                                            -0.0001521379017503932),
+    ("olmo1b-train-s1", "blocks.mlp.wo"): ("16700c523d58f92c",
+                                           0.029428739100694656),
+    ("granite-moe-train-s1", "embed"): ("9e410888c9bbc63d",
+                                        -0.007070150226354599),
+    ("granite-moe-train-s1", "blocks.attn.wo"): ("186a7defb9900cfe",
+                                                 -0.0001521379017503932),
+    ("granite-moe-train-s1", "blocks.moe.wo"): ("3cbb2f797daeefd6",
+                                                0.00926192943006754),
+    ("granite-moe-train-s1", "blocks.moe.router"): ("30c0ff589354d52d",
+                                                    0.0009015125688165426),
+}
+# the whole train state, each leaf's path and bytes in the tree's order
+PINNED_STATE = {"olmo1b-train-s1": "1799be5fd59c977a",
+                "granite-moe-train-s1": "3c9c0a67772b0beb"}
+
+
+def _digest(w: torch.Tensor) -> str:
+    return hashlib.sha256(w.numpy().tobytes()).hexdigest()[:16]
+
+
+@pytest.mark.parametrize("name,path", list(PINNED),
+                         ids=[f"{n}-{p}" for n, p in PINNED])
+def test_draws_are_the_recorded_ones(name, path):
+    """A leaf of an existing configuration, drawn alone, is bit for bit
+    what the harness drew before the family modules held the layouts."""
+    c = cell(name)
+    w = weights.initial(c.config, SEED, "cpu")(path)
+    digest, first = PINNED[(name, path)]
+    assert w.flatten()[0].item() == first
+    assert _digest(w) == digest
+
+
+@pytest.mark.parametrize("name", list(PINNED_STATE))
+def test_drawn_state_is_the_recorded_one(name):
+    state = weights.train_state(cell(name).config, SEED, "cpu")
+    h = hashlib.sha256()
+    for path, leaf in weights.leaves(state):
+        h.update(path.encode())
+        h.update(leaf.numpy().tobytes())
+    assert h.hexdigest()[:16] == PINNED_STATE[name]
+
+
+# ------------------------------------------------- a family added as files
+def _ssm_family() -> types.ModuleType:
+    """The family module of the port's ``ssm`` family (Mamba2 blocks), as
+    a new family would add it under ``reference/``: its layout, Mamba2's
+    published initialisation of ``A_log``, ``dt_bias`` and ``D``, and its
+    step FLOPs.  It holds no ``train``: this test runs no reference."""
+    def layout(model):
+        d, v, n, s = (model["d_model"], model["vocab_size"],
+                      model["num_layers"], model["ssm"])
+        d_in = s["expand"] * d
+        heads, state = d_in // s["head_dim"], s["state_dim"]
+        conv = d_in + 2 * state
+        return {"embed": (v, d), "final_norm": {"scale": (d,)},
+                "blocks": {"ln1": {"scale": (n, d)}, "ssm": {
+                    "in_proj": (n, d, 2 * d_in + 2 * state + heads),
+                    "conv_w": (n, s["conv_width"], conv),
+                    "conv_b": (n, conv), "A_log": (n, heads),
+                    "D": (n, heads), "dt_bias": (n, heads),
+                    "norm_scale": (n, d_in), "out_proj": (n, d_in, d)}}}
+
+    def step_flops(model, tokens_per_row, rows):
+        """6 N T for the projections and the tied head, and 3x the SSD's
+        intra-chunk products (C B^T over the chunk's pairs, then its
+        product with x) in every layer."""
+        d, s = model["d_model"], model["ssm"]
+        d_in = s["expand"] * d
+        heads = d_in // s["head_dim"]
+        proj = d * (2 * d_in + 2 * s["state_dim"] + heads) + d_in * d
+        n = model["num_layers"] * proj + d * model["vocab_size"]
+        t = tokens_per_row * rows
+        ssd = 2 * t * s["chunk_size"] * heads * (s["state_dim"]
+                                                  + s["head_dim"])
+        return 6 * n * t + 3 * model["num_layers"] * ssd
+
+    module = types.ModuleType("bench.reference.tiny_ssm")
+    module.layout, module.step_flops = layout, step_flops
+    module.DRAWS = {"A_log": ("log_of_uniform", 1.0, 16.0),
+                    "dt_bias": ("dt_bias", 1e-3, 1e-1),
+                    "D": ("ones",), "conv_b": ("zeros",)}
+    return module
+
+
+def test_a_new_family_joins_as_files(tmp_path, monkeypatch):
+    """A configuration of a family the harness has never drawn (the
+    port's ``ssm``) joins with a family module, a config, a traffic mix, a
+    workload and entries: its sub-config is built, its state drawn in the
+    port's layout with Mamba2's published ranges, one step runs to a
+    finite loss, and ``step_mfu.train`` reads the module's FLOPs.  No file
+    that was there changes."""
+    from repro_torch.configs.base import SSMConfig
+    from repro_torch.training.state import init_train_state
+
+    root = _copy(tmp_path)
+    before = {p: p.read_bytes() for p in (root / "bench").rglob("*")
+              if p.is_file()}
+    family = _ssm_family()
+    monkeypatch.setitem(sys.modules, family.__name__, family)
+    model = {"name": "tiny-ssm", "arch_type": "ssm", "num_layers": 2,
+             "d_model": 64, "num_heads": 0, "num_kv_heads": 0, "d_ff": 0,
+             "vocab_size": 256, "norm": "rmsnorm", "tie_embeddings": True,
+             "dtype": "bfloat16",
+             "ssm": {"state_dim": 16, "head_dim": 16, "expand": 2,
+                     "chunk_size": 8, "conv_width": 4}}
+    (root / "bench/configs/tiny-ssm.json").write_text(json.dumps(
+        {"name": "tiny-ssm", "model": model,
+         "reference": {"module": "tiny_ssm"}}))
+    (root / "bench/traffic/tiny-ssm-mix.json").write_text(json.dumps(
+        {"seq_len": 32, "global_batch": 2, "world": 2, "physical": 1,
+         "zipf_exponent": 1.0}))
+    job = json.loads((root / "bench/workloads/olmo1b-train-s1.json")
+                     .read_text())
+    (root / "bench/workloads/tiny-ssm-cell.json").write_text(json.dumps(
+        dict(job, check_steps=1)))
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    spec["configs"].append({"name": "tiny-ssm", "source": "test",
+                            "file": "bench/configs/tiny-ssm.json",
+                            "reduced": [], "why": "test"})
+    spec["workloads"].append({"name": "tiny-ssm-cell", "config": "tiny-ssm",
+                              "traffic": "tiny-ssm-mix", "chips": 1,
+                              "why": "test"})
+    next(m for m in spec["per_layer"] if m["name"] == "step_mfu.train")[
+        "workloads"].append("tiny-ssm-cell")
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+
+    c = harness.load_cell("tiny-ssm-cell", root)
+    cfg, tcfg = harness.program_config(c)
+    assert isinstance(cfg.ssm, SSMConfig) and cfg.ssm.chunk_size == 8
+    port = init_train_state(cfg, tcfg, device="meta")
+    state = weights.train_state(c.config, SEED, "cpu")
+    assert {k: (tuple(v.shape), v.dtype)
+            for k, v in weights.leaves(port)} == {
+        k: (tuple(v.shape), v.dtype) for k, v in weights.leaves(state)}
+    ssm = state["params"]["blocks"]["ssm"]
+    a = -torch.exp(ssm["A_log"])
+    assert a.min() >= -16 and a.max() <= -1 and a.std() > 0
+    dt = F.softplus(ssm["dt_bias"].double())
+    assert dt.min() >= 1e-3 * (1 - 1e-5) and dt.max() <= 1e-1 * (1 + 1e-5)
+    assert dt.std() > 0
+    assert torch.equal(ssm["D"], torch.ones_like(ssm["D"]))
+    assert torch.equal(ssm["conv_b"], torch.zeros_like(ssm["conv_b"]))
+    # one leaf drawn again alone is the state's
+    assert torch.equal(weights.initial(c.config, SEED, "cpu")(
+        "blocks.ssm.dt_bias"), ssm["dt_bias"])
+
+    rt = harness.build(c, SEED, "cpu")
+    prog = harness.first_steps(rt, c, SEED, "cpu")
+    assert len(prog["losses"]) == 1 and math.isfinite(prog["losses"][0])
+    assert set(prog["change"]) == {k for k, _ in weights.leaves(
+        weights.layout(c.config))}
+
+    assert [m["name"] for m in c.per_layer] == ["step_mfu.train"]
+    read = harness.metric_reader("step_mfu.train", root)
+    flops = family.step_flops(c.config["model"], 32, 2)
+    assert read(harness.Run(c, [0.5], None)) == pytest.approx(
+        100 * flops / 0.5 / costs.PEAK_BF16_FLOPS)
+    assert all(p.read_bytes() == b for p, b in before.items())
+
+
+_RULES = {
+    "ones": (("ones",), lambda w: torch.equal(w, torch.ones_like(w))),
+    "zeros": (("zeros",), lambda w: torch.equal(w, torch.zeros_like(w))),
+    "constant": (("constant", 0.5),
+                 lambda w: torch.equal(w, torch.full_like(w, 0.5))),
+    "normal": (("normal", 0.1),
+               lambda w: abs(float(w.std()) - 0.1) < 0.005
+               and abs(float(w.mean())) < 0.005),
+    "uniform": (("uniform", 2.0, 3.0),
+                lambda w: 2 <= w.min() and w.max() <= 3
+                and abs(float(w.mean()) - 2.5) < 0.01),
+    "log_of_uniform": (("log_of_uniform", 1.0, 16.0),
+                       lambda w: 0 <= w.min() and w.max() <= math.log(16)
+                       and abs(float(w.exp().mean()) - 8.5) < 0.1),
+    "dt_bias": (("dt_bias", 1e-3, 1e-1),
+                lambda w: 1e-3 * (1 - 1e-5) <= F.softplus(w.double()).min()
+                and F.softplus(w.double()).max() <= 1e-1 * (1 + 1e-5)),
+}
+
+
+@pytest.mark.parametrize("rule", sorted(_RULES))
+def test_each_rule_of_the_menu_draws_what_it_says(rule):
+    """Each rule a family's ``DRAWS`` may name, on a leaf of 10,000: its
+    values as the rule states them, drawn again alike from the seed, and
+    the leaf's default rule left to every leaf the family does not name."""
+    assert set(_RULES) == set(weights.MENU)
+    spec, holds = _RULES[rule]
+    rules = {"w": spec}
+    w = weights.draw("blocks.x.w", (100, 100), SEED, "cpu", rules)
+    assert w.dtype == torch.float32 and holds(w)
+    assert torch.equal(w, weights.draw("blocks.x.w", (100, 100), SEED,
+                                       "cpu", rules))
+    assert torch.equal(weights.draw("blocks.x.v", (100, 100), SEED, "cpu",
+                                    rules),
+                       weights.draw("blocks.x.v", (100, 100), SEED, "cpu",
+                                    {}))
+
+
+@dataclasses.dataclass(frozen=True)
+class _Inner:
+    width: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class _Outer:
+    name: str
+    kinds: Tuple[str, ...] = ()
+    inner: Optional[_Inner] = None
+    table: Optional[dict] = None
+
+
+def test_program_config_builds_fields_from_their_declared_types():
+    """Each nested object becomes the dataclass its field declares, each
+    array a tuple, and a field the harness has never seen passes through;
+    the result is frozen and hashes as the port's configs do."""
+    cfg = harness._typed(_Outer, {"name": "x", "kinds": ["a", "b"],
+                                  "inner": {"width": 3},
+                                  "table": {"k": [1, 2]}})
+    assert cfg == _Outer("x", ("a", "b"), _Inner(3), {"k": (1, 2)})
+    hash(dataclasses.replace(cfg, table=None))
+    for name in ("olmo1b-train-s1", "granite-moe-train-s1"):
+        hash(harness.program_config(harness.load_cell(name))[0])
 
 
 def test_interval_union_and_gaps():
@@ -169,6 +407,16 @@ def test_step_flops_of_granite():
     assert costs.matmul_params(model) == n
     attn = 3 * 4 * 64 * (4096 * 4097 // 2) * 4 * 24
     assert costs.step_flops(model, 4096, 4) == 6 * n * 16384 + 32 * attn
+
+
+def test_step_flops_of_olmo():
+    model = harness.load_cell("olmo1b-train-s1").config["model"]
+    n = 16 * (4 * 2048 * 2048 + 3 * 2048 * 8192) + 2048 * 50304
+    assert costs.matmul_params(model) == n == 1_176_764_416
+    attn = 3 * 4 * 128 * (4096 * 4097 // 2) * 4 * 16
+    flops = costs.step_flops(model, 4096, 4)
+    assert flops == 6 * n * 16384 + 16 * attn == 128_878_009_909_248
+    assert isinstance(flops, int)
 
 
 def test_tokens_per_step_over_the_window():

@@ -17,9 +17,12 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    training shapes (H 32, D 64, window 4096 = S), granite-moe's serving
    and training ones (H 24, D 64), h2o-danube-3-4b's prefill (B 2, S
    6144, H 32, D 120, window 4096 < S), llama-3.2-vision-11b's prefill
-   (H 32, D 128), whisper-base's prefill and training ones (H 8, D 64)
-   and llama-3.2-vision-11b's training ones (B 4 and 2, S 4096, H 32, D
-   128); ``torch.library.opcheck`` of the op ``repro_torch::swa_flash`` on
+   (H 32, D 128), whisper-base's prefill and training ones (H 8, D 64),
+   llama-3.2-vision-11b's training ones (B 4 and 2, S 4096, H 32, D
+   128), granite-4.0-h-micro's training one (B 4, S 4096, H 32, D 64)
+   and olmo-1b's at 16 x 1024 (B 16, S 1024, H 16, D 128), the last two
+   the benchmark's cells granite-h-micro-train-s1 and olmo1b-train-seq1k;
+   ``torch.library.opcheck`` of the op ``repro_torch::swa_flash`` on
    CUDA inputs (schema; its fake implementation against the kernel's
    outputs), as phases 2b, 2c and 2d do for their ops; then, at the shapes
    of ``SWA_TIMED``, time the kernel (back to back,
@@ -29,7 +32,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    calls it) beside the kernel's bound.
 2e. Hold ``swa_flash_bwd`` (the backward of ``swa_flash``) against the
    plain backward on the same bf16 inputs at ``BWD_CASES`` (head dims 64,
-   80, 120 and 128, a window, a ragged S); ``torch.library.opcheck`` of
+   80, 120 and 128, a window, a ragged S, granite-4.0-h-micro's and
+   olmo-1b's training calls at S 4096 and 1024); ``torch.library.opcheck`` of
    the op on CUDA inputs; then, at olmo-1b's and granite-moe's training
    calls (``BWD_TIMED``), time it (back to back, and its kernels' device
    time by the profiler) and the plain backward beside the bound of its
@@ -39,7 +43,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    groups of heads (head dims 16, 32 and 128, a ragged chunk, N 40 and 33,
    H 5) and at the mamba2-130m training shapes (BC 128 and 64, groups of
    8 heads), phase 7's mamba2-130m smoke shapes and zamba2-1.2b's training
-   shapes (BC 128 and 64, H 64, N 64); run the whole SSD wrapper at a
+   shapes (BC 128 and 64, H 64, N 64) and granite-4.0-h-micro's (BC
+   128, H 64, N 128); run the whole SSD wrapper at a
    ragged length against the
    plain chunked scan, the O(L) recurrence and its own ``initial_state``
    continuation; time the kernel (back to back, and its device time by the
@@ -54,7 +59,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    granite-moe's (d 1536, V 49155, an untied head the wrapper copies
    for TMA: 1 copy a call, asserted), whisper-base's (d 512, V 51865,
    copied likewise) and llama-3.2-vision-11b's (d 4096, V 128256, an
-   untied head read in place); compare the
+   untied head read in place) and granite-4.0-h-micro's (d 2048, V
+   100352, the tied table read in place); compare the
    (sum, count) of ``fused_cross_entropy`` with the full-logits plain CE;
    time the kernel (back to back, and with the L2 flushed before each
    launch) and the plain version beside the kernel's bound, with cuBLAS's
@@ -182,6 +188,18 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    splice 2 at the same depth, donated.
 12b. f32, card against CPU: one training step of the llama-vision smoke
    config.
+12c. After 12b, train granite-4.0-h-micro at its full size (40 layers:
+   Mamba2 at 36, GQA with 32 query and 8 KV heads of 64 and no RoPE at
+   5, 15, 25 and 35, each followed by its SwiGLU; the four multipliers;
+   the configuration of ``bench/configs/granite-4.0-h-micro.json``, since
+   the registry has no interleaved config) with the donated step, the path
+   ``granite-h-micro-train``, on phase 4's schedule and with its checks:
+   72 ``ssd_intra_chunk`` (36 layers, again in remat's recomputation), 8
+   ``swa_flash``, 4 ``swa_flash_bwd`` and 1 ``fused_ce_stats`` per slice,
+   the tied head read in place; splice 1 against splice 2 at 6 layers.
+   It has no f32 card-against-CPU step: the interleaved family's CPU
+   check is ``tests/test_torch_granite_hybrid.py``, against the
+   benchmark's plain reference.
 11. Run a seeded fleet trace (failures, the serving tier, scaling curves)
    through the port's ``FleetSimulator``, the path ``fleet-sim``: numpy on
    the host, no kernel; it prints the digest of every decision (the JAX
@@ -262,6 +280,11 @@ KERNEL_CASES = [
     # 32 heads of 128, the 8 KV heads repeated
     (4, 4096, 32, 128, 0, "bfloat16"),
     (2, 4096, 32, 128, 0, "bfloat16"),
+    # granite-4.0-h-micro training (``INTERLEAVED_TRAIN_PATH``, the cell
+    # granite-h-micro-train-s1): 32 query heads of 64, the 8 KV heads
+    # repeated, no window; olmo-1b at 16 x 1024 (olmo1b-train-seq1k)
+    (4, 4096, 32, 64, 0, "bfloat16"),
+    (16, 1024, 16, 128, 0, "bfloat16"),
 ]
 # timed: (case, key suffix in the kernels line, iterations)
 SWA_TIMED = [(KERNEL_CASES[0], "", 200), (KERNEL_CASES[4], "_train", 20),
@@ -283,6 +306,8 @@ BWD_CASES = [
     (2, 512, 24, 80, 0),      # head dim 80, padded to 80
     (2, 333, 4, 120, 100),    # head dim 120, a ragged S and a window
     (1, 1000, 8, 128, 256),   # a window shorter than S
+    (4, 4096, 32, 64, 0),     # granite-4.0-h-micro training, GQA 32 / 8
+    (16, 1024, 16, 128, 0),   # olmo-1b at 16 x 1024
 ]
 # each of dq, dk, dv to this share of the plain one's largest entry:
 # tests/test_torch_cuda.py's bound (one bf16 rounding of each result, the
@@ -322,6 +347,9 @@ SSD_CASES = [
     # zamba2-1.2b training (phase 8), splice 1 and 2: 64 heads, N 64, G 8
     (128, 128, 64, 64, 64, "bfloat16"),
     (64, 128, 64, 64, 64, "bfloat16"),
+    # granite-4.0-h-micro training, 4 x 4096 tokens in chunks of 128: 64
+    # heads of 64, N 128
+    (128, 128, 64, 64, 128, "bfloat16"),
 ]
 # timed: (case, key suffix in the kernels line)
 SSD_TIMED = [(SSD_CASES[0], ""), (SSD_CASES[2], "_zamba2"),
@@ -359,6 +387,9 @@ CE_CASES = [
     # 128256) head, read in place
     (16384, 4096, 128256, "bfloat16", False),
     (8192, 4096, 128256, "bfloat16", False),
+    # granite-4.0-h-micro training: the tied (100352, 2048) table read in
+    # place as its head
+    (16384, 2048, 100352, "bfloat16", True),
 ]
 # timed: (case, key suffix in the kernels line)
 CE_TIMED = [(CE_CASES[0], ""), (CE_CASES[1], "_t8192"),
@@ -412,6 +443,7 @@ HYBRID_TRAIN_PATH = "zamba2-1.2b-train"
 MOE_TRAIN_PATH = "granite-moe-train"
 AUDIO_TRAIN_PATH = "whisper-base-train"
 VLM_TRAIN_PATH = "vlm-train"
+INTERLEAVED_TRAIN_PATH = "granite-h-micro-train"
 # granite-moe-3b-a800m trains at all 32 layers (3.37 B parameters) with
 # the donated step (``donate``): params, m and v updated in place and one
 # gradient sum, 16 bytes a parameter (54 GB), where the functional step
@@ -504,6 +536,32 @@ TRAIN_SPECS = {
                          tol=dict(loss=1e-4, grad_norm=1e-3),
                          f32_firm="the gradients agree to 1e-3 relative",
                          gates=True, check_layers=5, check_donate=True),
+    # granite-4.0-h-micro at its full size (36 Mamba2 and 4 attention
+    # layers, 3,191,396,096 parameters) with the donated step, its
+    # configuration the benchmark's (``config_cell``: the registry holds
+    # none of the interleaved family): 72 ``ssd_intra_chunk`` (36 layers,
+    # again under remat), 8 ``swa_flash`` and 4 ``swa_flash_bwd`` (4
+    # layers) and 1 ``fused_ce_stats`` per slice, the tied head read in
+    # place.  Its bounds were set before its first run in this phase: the
+    # final norm's output is divided by ``logits_scaling`` 8, so the first
+    # loss is about ln V + d 0.02^2 / (2 * 64) = 11.516 + 0.006 (the
+    # benchmark's runs of the cell read 11.515); its splice check runs 6
+    # layers, the first attention layer among them.
+    INTERLEAVED_TRAIN_PATH: dict(arch="granite-4.0-h-micro", phase="12c",
+                                 config_cell="granite-h-micro-train-s1",
+                                 donate=True,
+                                 per_slice={"ssd_intra_chunk": 72,
+                                            "swa_flash": 8,
+                                            "swa_flash_bwd": 4,
+                                            "fused_ce_stats": 1},
+                                 leaves=24, named=("blocks/ssm/A_log",
+                                                   "blocks/ssm/dt_bias",
+                                                   "blocks/mlp/wg",
+                                                   "attn_blocks/attn/wq",
+                                                   "attn_blocks/mlp/wg"),
+                                 first_loss=(11.45, 11.65),
+                                 tol=dict(loss=1e-4, grad_norm=1e-3),
+                                 check_layers=6),
     SSM_TRAIN_PATH: dict(arch="mamba2-130m", phase="6",
                          per_slice={"ssd_intra_chunk": 48,
                                     "fused_ce_stats": 1},
@@ -1172,7 +1230,6 @@ def phase_train(torch, card, counters, path=TRAIN_PATH):
     its steps counted a slice (each kernel's launches over the steps,
     divided by their slices), the runtime (at splice 2) and its mean step
     time at splice 2 in seconds."""
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core.elastic import ElasticRuntime
     from repro_torch.optim.adamw import global_norm
@@ -1182,21 +1239,19 @@ def phase_train(torch, card, counters, path=TRAIN_PATH):
     spec = TRAIN_SPECS[path]
     print(f"\n== phase {spec['phase']}: {path}: {spec['arch']} training at "
           f"full width through ElasticRuntime", flush=True)
-    full = get_config(spec["arch"])
-    cfg = dataclasses.replace(full, num_layers=spec.get("layers")
-                              or full.num_layers)
-    n_params = cfg.param_count()
+    full = _path_config(spec)
+    cfg = _cut(full, spec.get("layers") or full.num_layers)
+    n_params, n_active = _param_counts(cfg)
     donate = spec.get("donate", False)
     if cfg != full:
         per_param = 16 if donate else 28
         print(f"reduced: {full.num_layers} -> {cfg.num_layers} layers, "
-              f"{full.param_count()} -> {n_params} parameters ({per_param} "
+              f"{_param_counts(full)[0]} -> {n_params} parameters ({per_param} "
               f"bytes a parameter at the update: {per_param * n_params} "
               f"bytes); widths, experts, top-k, vocabulary and group "
               f"layout kept", flush=True)
     # 6 N T counts the parameters each token touches (MoE: its top-k
     # experts)
-    n_active = cfg.active_param_count()
     steps = len(TRAIN["physical"])
     tcfg = TrainConfig(total_steps=steps, warmup_steps=2, learning_rate=1e-3)
     world, gb, seq = TRAIN["world"], TRAIN["batch"], TRAIN["seq"]
@@ -1211,7 +1266,7 @@ def phase_train(torch, card, counters, path=TRAIN_PATH):
     # not that over the whole), and bf16 router logits from GEMMs of
     # another row count may round differently and flip a near tie
     cfg4 = _no_drops(dataclasses.replace(
-        cfg, num_layers=spec.get("check_layers", 4),
+        _cut(cfg, spec.get("check_layers", 4)),
         dtype=spec.get("check_dtype", cfg.dtype)))
     if cfg4.moe is not None:
         cfg4 = dataclasses.replace(cfg4, moe=dataclasses.replace(
@@ -1366,6 +1421,39 @@ def phase_train(torch, card, counters, path=TRAIN_PATH):
     torch.cuda.empty_cache()
 
     return launches, per_slice, rt, float(step_s)
+
+
+def _path_config(spec):
+    """The path's ``ModelConfig``: the registry's ``arch``, or the
+    benchmark's configuration of the cell ``config_cell``
+    (``bench/harness.py::program_config``)."""
+    if "config_cell" not in spec:
+        from repro_torch.configs import get_config
+
+        return get_config(spec["arch"])
+    from bench import harness
+
+    return harness.program_config(harness.load_cell(spec["config_cell"]))[0]
+
+
+def _cut(cfg, layers: int):
+    """``cfg`` at its first ``layers`` layers (its ``layer_types`` too)."""
+    kinds = {"layer_types": cfg.layer_types[:layers]} if cfg.layer_types \
+        else {}
+    return dataclasses.replace(cfg, num_layers=layers, **kinds)
+
+
+def _param_counts(cfg):
+    """(parameters, those a token touches): ``ModelConfig``'s counts, or,
+    for the interleaved family, whose layers those counts do not see, the
+    leaves of its parameter tree on the meta device."""
+    if cfg.arch_type != "interleaved":
+        return cfg.param_count(), cfg.active_param_count()
+    from repro_torch.models import init_params
+    from repro_torch.utils.tree import tree_leaves
+
+    n = sum(t.numel() for t in tree_leaves(init_params(cfg, device="meta")))
+    return n, n
 
 
 def _update_transient(torch, rt):
@@ -2335,6 +2423,10 @@ def main() -> int:
         del rt
         torch.cuda.empty_cache()
         phase_train_f32(path)
+    by_path[INTERLEAVED_TRAIN_PATH], per_slice[INTERLEAVED_TRAIN_PATH], rt, _ \
+        = phase_train(torch, card, counters, INTERLEAVED_TRAIN_PATH)
+    del rt
+    torch.cuda.empty_cache()
     by_path[SIM_PATH] = phase_fleet_sim(counters)
     phase_dryrun(STATE_BYTES[MOE_TRAIN_PATH],
                  per_slice[MOE_TRAIN_PATH]["swa_flash"],

@@ -52,7 +52,7 @@ class VLMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                # dense | moe | ssm | hybrid | audio | vlm
+    arch_type: str                # dense|moe|ssm|hybrid|audio|vlm|interleaved
     num_layers: int
     d_model: int
     num_heads: int                # query heads (0 for attention-free)
@@ -78,6 +78,21 @@ class ModelConfig:
     max_seq_len: int = 1 << 20
     dtype: str = "bfloat16"
     source: str = ""              # citation
+    # The port's own fields (the JAX package has none of them).  At their
+    # defaults every family runs as it does without them.
+    # interleaved: the mixer of each layer, "mamba" or "attention"
+    layer_types: Tuple[str, ...] = ()
+    # granite's multipliers (dense, moe and interleaved training): the
+    # embedding's output times embedding_multiplier; attention_multiplier
+    # as the softmax scale (0 = 1/sqrt(head_dim)); each residual branch
+    # times residual_multiplier; the final norm's output over
+    # logits_scaling before the head
+    embedding_multiplier: float = 1.0
+    attention_multiplier: float = 0.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    # the eps of every RMSNorm, the Mamba2 mixer's gated one included
+    norm_eps: float = 1e-6
 
     def resolved_head_dim(self) -> int:
         if self.head_dim:

@@ -137,10 +137,24 @@ def _sharded_core(core, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return constrain(o, *HEADS)
 
 
+def _rescaled(q: torch.Tensor, softmax_scale: float) -> torch.Tensor:
+    """q for a core that scales its scores by 1/sqrt(head_dim), so that
+    they come out scaled by ``softmax_scale`` instead: q times
+    softmax_scale * sqrt(head_dim), in q's dtype (exact in bf16 where that
+    factor is a power of two, as granite's 1/64 at head dim 64 gives
+    1/8).  ``softmax_scale`` 0 keeps the core's own scale and launches
+    nothing."""
+    if not softmax_scale:
+        return q
+    return q * (softmax_scale * math.sqrt(q.shape[-1]))
+
+
 def self_attention_with_kv(params: Dict, x: torch.Tensor, *, num_heads: int,
-                           rope_theta: float, window: int = 0
+                           rope_theta: float, window: int = 0,
+                           softmax_scale: float = 0.0
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Causal self-attention over positions 0..S-1.
+    """Causal self-attention over positions 0..S-1, its scores scaled by
+    ``softmax_scale`` (0: 1/sqrt(head_dim)).
 
     Returns (out (B, S, d_model), k, v), with k (after RoPE) and v the
     (B, S, KVH, hd) projections before the GQA repeat: what the prefill
@@ -155,6 +169,7 @@ def self_attention_with_kv(params: Dict, x: torch.Tensor, *, num_heads: int,
         positions = torch.arange(s, device=x.device)[None, :]
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
+    q = _rescaled(q, softmax_scale)
     kr = constrain(_repeat_kv(k, num_heads), *HEADS)
     vr = constrain(_repeat_kv(v, num_heads), *HEADS)
     o = _sharded_core(lambda q_, k_, v_: swa_attention(q_, k_, v_,
@@ -185,16 +200,20 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 def attention_forward(params: Dict, x: torch.Tensor, *, num_heads: int,
                       num_kv_heads: int, rope_theta: float, window: int = 0,
-                      kv=None, causal: bool = True) -> torch.Tensor:
+                      kv=None, causal: bool = True,
+                      softmax_scale: float = 0.0) -> torch.Tensor:
     """Full attention layer (projections + core).
 
     kv: optional cross-attention source (B, Skv, d_model); None = self-attn.
     Causal self-attention runs the kernel core; cross attention and
     ``causal=False`` run ``full_attention`` (no RoPE on cross attention).
+    ``softmax_scale`` goes to causal self-attention alone
+    (``self_attention_with_kv``).
     """
     if kv is None and causal:
         return self_attention_with_kv(params, x, num_heads=num_heads,
-                                      rope_theta=rope_theta, window=window)[0]
+                                      rope_theta=rope_theta, window=window,
+                                      softmax_scale=softmax_scale)[0]
     src = x if kv is None else kv
     q = _project(x, params["wq"])
     k = _project(src, params["wk"])

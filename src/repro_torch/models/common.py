@@ -32,14 +32,16 @@ def layernorm(x: torch.Tensor, scale: Optional[torch.Tensor],
     return x.to(dtype)
 
 
-def apply_norm(kind: str, x: torch.Tensor, params: Optional[dict]) -> torch.Tensor:
-    """Dispatch on the config's norm kind.
+def apply_norm(kind: str, x: torch.Tensor, params: Optional[dict],
+               eps: float = 1e-6) -> torch.Tensor:
+    """Dispatch on the config's norm kind; ``eps`` is the RMSNorm's (the
+    LayerNorms keep 1e-5).
 
     ``nonparametric_ln`` (olmo, arXiv:2402.00838) is LayerNorm with no
     learned scale/bias: params is None.
     """
     if kind == "rmsnorm":
-        return rmsnorm(x, params["scale"] if params else None)
+        return rmsnorm(x, params["scale"] if params else None, eps)
     if kind == "layernorm":
         return layernorm(x, params["scale"] if params else None,
                          params.get("bias") if params else None)

@@ -1,5 +1,6 @@
 """Model assembly: serving and training for the dense, MoE, SSM, hybrid,
-audio (encoder-decoder) and VLM families (port of ``repro.models.model``).
+audio (encoder-decoder) and VLM families (port of ``repro.models.model``),
+and training for the interleaved family, which the JAX package has not.
 
 - ``init_params``       — parameter tree, layers stacked on axis 0 as in JAX
 - ``model_forward``     — training forward -> (loss, metrics)
@@ -20,6 +21,18 @@ bidirectional encoder over the frame embeddings once, then decoder layers
 of self-attention, gated cross attention over the encoder's output and
 MLP.  The cross-attention gates are f32 scalars, zero at init, whatever
 the parameters' dtype.
+
+The interleaved family (granite-4.0-h, ``granitemoehybrid``) runs its
+layers in the order of ``layer_types``: each layer is a mixer, a Mamba2
+block or GQA self-attention, then its own SwiGLU MLP, both with pre-norms
+and residual branches scaled by ``residual_multiplier``.  Its parameters
+hold one stack a kind of layer: ``blocks`` the Mamba2 layers (``ln1``,
+``ssm``, ``ln2``, ``mlp``), ``attn_blocks`` the attention layers (``ln1``,
+``attn``, ``ln2``, ``mlp``).  Granite's multipliers (``ModelConfig``'s
+``embedding_multiplier``, ``attention_multiplier``,
+``residual_multiplier``, ``logits_scaling``) apply in the training forward
+of the MoE and interleaved families (``MULTIPLIED``); the others refuse
+them, as serving does.  At its default each one launches nothing.
 """
 from __future__ import annotations
 
@@ -46,16 +59,51 @@ from repro_torch.parallel.constraints import (BATCH, MODEL, clean_spec,
 from repro_torch.utils import torch_dtype
 from repro_torch.utils.spans import span
 
-PORTED = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
+PORTED = ("dense", "moe", "ssm", "hybrid", "audio", "vlm", "interleaved")
+# families that train but are not served (no prefill or decode yet)
+NOT_SERVED = ("interleaved",)
+# families whose training forward takes granite's multipliers: granite-4.0-h
+# and granite-moe
+MULTIPLIED = ("moe", "interleaved")
+LAYER_KINDS = ("mamba", "attention")
 # leaves kept in f32 whatever the parameters' dtype, as in JAX: the SSM's
 # A_log, D and dt_bias, and the cross-attention gates
 F32_LEAVES = ssm_lib.F32_LEAVES + ("gate",)
 
 
-def check_ported(cfg: ModelConfig) -> None:
+def _multiplied(cfg: ModelConfig) -> bool:
+    """Whether any of granite's multipliers is off its default."""
+    return (cfg.embedding_multiplier != 1.0 or cfg.attention_multiplier != 0.0
+            or cfg.residual_multiplier != 1.0 or cfg.logits_scaling != 1.0)
+
+
+def check_ported(cfg: ModelConfig, serving: bool = False) -> None:
+    """The family is the port's; with ``serving``, one that prefill and
+    decode run: not the interleaved family, and no granite multiplier off
+    its default (the serving paths do not apply them)."""
     if cfg.arch_type not in PORTED:
         raise ValueError(f"{cfg.name}: unknown arch_type {cfg.arch_type!r}; "
                          f"the families are {PORTED}")
+    if cfg.arch_type == "interleaved":
+        layer_counts(cfg)
+    if serving and cfg.arch_type in NOT_SERVED:
+        raise ValueError(f"{cfg.name}: the {cfg.arch_type} family trains "
+                         f"but is not served (no prefill or decode)")
+    if serving and _multiplied(cfg):
+        raise ValueError(f"{cfg.name}: serving does not apply the "
+                         f"embedding, attention, residual or logit "
+                         f"multipliers")
+
+
+def layer_counts(cfg: ModelConfig) -> Tuple[int, int]:
+    """(Mamba2 layers, attention layers) of the interleaved family, from
+    ``layer_types``."""
+    kinds = cfg.layer_types
+    if len(kinds) != cfg.num_layers or not set(kinds) <= set(LAYER_KINDS):
+        raise ValueError(f"{cfg.name}: layer_types must give each of the "
+                         f"{cfg.num_layers} layers one of {LAYER_KINDS}; "
+                         f"got {kinds}")
+    return kinds.count("mamba"), kinds.count("attention")
 
 
 # ---------------------------------------------------------------------------
@@ -91,6 +139,18 @@ def _init_ssm_block(cfg: ModelConfig, gen: torch.Generator, device,
         "ln1": norm_param(cfg.norm, cfg.d_model, device=device, dtype=dtype),
         "ssm": ssm_lib.init_ssm(gen, cfg.d_model, cfg.ssm, device=device,
                                 dtype=dtype),
+    }
+
+
+def _init_mamba_layer(cfg: ModelConfig, gen: torch.Generator, device,
+                      dtype) -> Dict:
+    """A Mamba2 layer of the interleaved family: the Mamba2 block, then
+    its MLP with its norm."""
+    return {
+        **_init_ssm_block(cfg, gen, device, dtype),
+        "ln2": norm_param(cfg.norm, cfg.d_model, device=device, dtype=dtype),
+        "mlp": mlp_lib.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp,
+                                device=device, dtype=dtype),
     }
 
 
@@ -309,6 +369,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device,
     def stack(fn, n):
         return _stack([fn(cfg, gen, device, dtype) for _ in range(n)])
 
+    if cfg.arch_type == "interleaved":
+        n_mamba, n_attn = layer_counts(cfg)
+        params["blocks"] = stack(_init_mamba_layer, n_mamba)
+        params["attn_blocks"] = stack(_init_attn_block, n_attn)
+        return params
     params["blocks"] = stack(block, cfg.num_layers)
     if cfg.arch_type == "hybrid":
         # zamba2: ONE shared attention block applied every attn_every layers
@@ -332,27 +397,40 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device,
 # Building blocks
 # ---------------------------------------------------------------------------
 
-def _self_attn(cfg: ModelConfig, block: Dict, x: torch.Tensor
-               ) -> torch.Tensor:
-    h = apply_norm(cfg.norm, x, block["ln1"])
-    h = attn_lib.attention_forward(
-        block["attn"], h, num_heads=cfg.num_heads,
-        num_kv_heads=cfg.num_kv_heads, rope_theta=cfg.rope_theta,
-        window=cfg.sliding_window)
+def _norm(cfg: ModelConfig, x: torch.Tensor, params: Optional[dict]
+          ) -> torch.Tensor:
+    return apply_norm(cfg.norm, x, params, cfg.norm_eps)
+
+
+def _residual(cfg: ModelConfig, x: torch.Tensor, h: torch.Tensor
+              ) -> torch.Tensor:
+    """x + residual_multiplier * h (no product at the default 1)."""
+    if cfg.residual_multiplier != 1.0:
+        h = h * cfg.residual_multiplier
     return x + h
 
 
+def _self_attn(cfg: ModelConfig, block: Dict, x: torch.Tensor
+               ) -> torch.Tensor:
+    h = _norm(cfg, x, block["ln1"])
+    h = attn_lib.attention_forward(
+        block["attn"], h, num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads, rope_theta=cfg.rope_theta,
+        window=cfg.sliding_window, softmax_scale=cfg.attention_multiplier)
+    return _residual(cfg, x, h)
+
+
 def _mlp_res(cfg: ModelConfig, block: Dict, x: torch.Tensor) -> torch.Tensor:
-    h = apply_norm(cfg.norm, x, block["ln2"])
-    return x + mlp_lib.mlp_forward(block["mlp"], h, cfg.mlp)
+    h = _norm(cfg, x, block["ln2"])
+    return _residual(cfg, x, mlp_lib.mlp_forward(block["mlp"], h, cfg.mlp))
 
 
 def _moe_res(cfg: ModelConfig, block: Dict, x: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The expert layer's residual and its weighted aux loss."""
-    h = apply_norm(cfg.norm, x, block["ln2"])
+    h = _norm(cfg, x, block["ln2"])
     out, aux = moe_lib.moe_forward(block["moe"], h, cfg.mlp, cfg.moe)
-    return x + out, aux
+    return _residual(cfg, x, out), aux
 
 
 def _ffn_res(cfg: ModelConfig, block: Dict, x: torch.Tensor) -> torch.Tensor:
@@ -374,15 +452,25 @@ def _moe_block(cfg: ModelConfig, block: Dict, x: torch.Tensor
 
 
 def _ssm_block(cfg: ModelConfig, block: Dict, x: torch.Tensor) -> torch.Tensor:
-    h = apply_norm(cfg.norm, x, block["ln1"])
-    return x + ssm_lib.ssm_forward(block["ssm"], h, cfg.ssm)
+    h = _norm(cfg, x, block["ln1"])
+    return _residual(cfg, x, ssm_lib.ssm_forward(block["ssm"], h, cfg.ssm,
+                                                 cfg.norm_eps))
+
+
+def _interleaved_layer(cfg: ModelConfig, layer, x: torch.Tensor
+                       ) -> torch.Tensor:
+    """One layer of the interleaved family: its mixer, the Mamba2 block or
+    self-attention, then its MLP.  ``layer`` is (kind, its weights)."""
+    kind, block = layer
+    mix = _ssm_block if kind == "mamba" else _self_attn
+    return _mlp_res(cfg, block, mix(cfg, block, x))
 
 
 def _cross_block(cfg: ModelConfig, cblock: Dict, x: torch.Tensor,
                  kv_src: torch.Tensor) -> torch.Tensor:
     """x + tanh(gate) * cross attention over ``kv_src`` (no RoPE; GQA
     through ``_repeat_kv``)."""
-    h = apply_norm(cfg.norm, x, cblock["ln"])
+    h = _norm(cfg, x, cblock["ln"])
     h = attn_lib.attention_forward(
         cblock["attn"], h, num_heads=cfg.num_heads,
         num_kv_heads=cfg.num_kv_heads, rope_theta=0.0, kv=kv_src,
@@ -396,7 +484,7 @@ def _audio_block(cfg: ModelConfig, blocks, x: torch.Tensor,
     window), gated cross attention over the encoder's output, MLP.
     ``blocks`` is (the layer, its cross block)."""
     block, cross = blocks
-    h = apply_norm(cfg.norm, x, block["ln1"])
+    h = _norm(cfg, x, block["ln1"])
     h = attn_lib.attention_forward(
         block["attn"], h, num_heads=cfg.num_heads,
         num_kv_heads=cfg.num_kv_heads, rope_theta=cfg.rope_theta)
@@ -429,12 +517,12 @@ def _encoder_forward(cfg: ModelConfig, params: Dict, frames: torch.Tensor
     x = frames + torch.cat([torch.sin(ang), torch.cos(ang)],
                            dim=-1)[None].to(frames.dtype)
     for block in _unstack(enc["blocks"], cfg.encdec.encoder_layers):
-        h = apply_norm(cfg.norm, x, block["ln1"])
+        h = _norm(cfg, x, block["ln1"])
         h = attn_lib.attention_forward(
             block["attn"], h, num_heads=cfg.num_heads,
             num_kv_heads=cfg.num_kv_heads, rope_theta=0.0, causal=False)
         x = _mlp_res(cfg, block, x + h)
-    return apply_norm(cfg.norm, x, enc["final_norm"])
+    return _norm(cfg, x, enc["final_norm"])
 
 
 def _cross_source(cfg: ModelConfig, params: Dict, batch: Dict,
@@ -535,7 +623,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int, *, device,
       ``init_decode_state``; prefill passes the working dtype, which JAX's
       prefill state holds.
     """
-    check_ported(cfg)
+    check_ported(cfg, serving=True)
     state: Dict = {"pos": 0}
     n_kv = {"ssm": None,
             "hybrid": num_shared_attn(cfg)}.get(cfg.arch_type, cfg.num_layers)
@@ -564,7 +652,7 @@ def _self_attn_decode(cfg: ModelConfig, block: Dict, x: torch.Tensor,
                       kv: Dict, i: int, pos: int) -> torch.Tensor:
     """x + the attention of block ``block`` on one token with KV cache
     entry ``i``, written in place."""
-    h = apply_norm(cfg.norm, x, block["ln1"])
+    h = _norm(cfg, x, block["ln1"])
     h, _ = attn_lib.decode_attention(
         block["attn"], h, {"k": kv["k"][i], "v": kv["v"][i]}, pos,
         num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
@@ -584,7 +672,7 @@ def _cross_decode(cfg: ModelConfig, cblock: Dict, x: torch.Tensor,
                   cross_kv: Dict, i: int) -> torch.Tensor:
     """x + tanh(gate) * the cross attention of one token over entry ``i``
     of the cached cross K/V."""
-    h = apply_norm(cfg.norm, x, cblock["ln"])
+    h = _norm(cfg, x, cblock["ln"])
     dtype = x.dtype
     h = attn_lib.decode_cross_attention(
         cblock["attn"], h, {"k": cross_kv["k"][i].to(dtype),
@@ -596,10 +684,10 @@ def _cross_decode(cfg: ModelConfig, cblock: Dict, x: torch.Tensor,
 def _ssm_decode(cfg: ModelConfig, block: Dict, x: torch.Tensor, sstate: Dict,
                 i: int) -> torch.Tensor:
     """Mamba2 layer ``i`` on one token; its state is updated in place."""
-    h = apply_norm(cfg.norm, x, block["ln1"])
+    h = _norm(cfg, x, block["ln1"])
     h, new = ssm_lib.ssm_decode_step(
         block["ssm"], h, {"conv": sstate["conv"][i], "ssm": sstate["ssm"][i]},
-        cfg.ssm)
+        cfg.ssm, cfg.norm_eps)
     sstate["conv"][i] = new["conv"]
     sstate["ssm"][i] = new["ssm"]
     return x + h
@@ -613,7 +701,7 @@ def decode_step_fn(params: Dict, state: Dict, token: torch.Tensor,
     ``attention.decode_attention``) and ``state`` itself is returned with
     ``pos`` advanced.
     """
-    check_ported(cfg)
+    check_ported(cfg, serving=True)
     dtype = torch_dtype(cfg.dtype)
     pos = state["pos"]
     x = _embed(params["embed"], token).to(dtype)[:, None]  # (B, 1, d)
@@ -629,7 +717,7 @@ def decode_step_fn(params: Dict, state: Dict, token: torch.Tensor,
             x = _mlp_res(cfg, layer, x)
         else:
             x = _attn_decode(cfg, block, x, state["kv"], i, pos)
-    x = apply_norm(cfg.norm, x, params["final_norm"])
+    x = _norm(cfg, x, params["final_norm"])
     logits = _logits(x[:, 0], _lm_head(cfg, params))
     state["pos"] = pos + 1
     return logits, state
@@ -676,7 +764,7 @@ def _self_attn_prefill(cfg: ModelConfig, block: Dict, x: torch.Tensor,
                        kv: Dict, i: int) -> torch.Tensor:
     """x + the attention of block ``block`` over the prompt, filling KV
     cache entry ``i``."""
-    hn = apply_norm(cfg.norm, x, block["ln1"])
+    hn = _norm(cfg, x, block["ln1"])
     h, k, v = attn_lib.self_attention_with_kv(
         block["attn"], hn, num_heads=cfg.num_heads,
         rope_theta=cfg.rope_theta, window=cfg.sliding_window)
@@ -707,8 +795,8 @@ def _ssm_prefill_layer(cfg: ModelConfig, block: Dict, x: torch.Tensor,
                        sstate: Dict, i: int) -> torch.Tensor:
     """Mamba2 layer ``i`` over the full prompt; its decode state goes into
     entry ``i`` of ``sstate``."""
-    h = apply_norm(cfg.norm, x, block["ln1"])
-    out, new = ssm_lib.ssm_prefill(block["ssm"], h, cfg.ssm)
+    h = _norm(cfg, x, block["ln1"])
+    out, new = ssm_lib.ssm_prefill(block["ssm"], h, cfg.ssm, cfg.norm_eps)
     sstate["conv"][i] = new["conv"]
     sstate["ssm"][i] = new["ssm"]
     return x + out
@@ -725,7 +813,7 @@ def prefill_fn(params: Dict, batch: Dict, cfg: ModelConfig,
     them a second time; the cache comes out the same.  ``batch`` holds
     ``image_embeds`` (vlm) or ``encoder_frames`` (audio) beside the tokens.
     """
-    check_ported(cfg)
+    check_ported(cfg, serving=True)
     tokens = batch["tokens"]
     b, s = tokens.shape
     target_len = cache_len if cache_len is not None else s
@@ -755,7 +843,7 @@ def prefill_fn(params: Dict, batch: Dict, cfg: ModelConfig,
             x = _mlp_res(cfg, layer, x)
         else:
             x = _attn_prefill(cfg, block, x, state["kv"], i)
-    x = apply_norm(cfg.norm, x, params["final_norm"])
+    x = _norm(cfg, x, params["final_norm"])
     logits = _logits(x[:, -1], _lm_head(cfg, params))
     return logits, state
 
@@ -831,7 +919,7 @@ def _sharded_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
 # block, for vlm a group of layers and its cross block (``_train_units``)
 TRAINED = {"dense": _dense_block, "moe": _moe_block, "ssm": _ssm_block,
            "hybrid": _hybrid_group, "audio": _audio_block,
-           "vlm": _vlm_group}
+           "vlm": _vlm_group, "interleaved": _interleaved_layer}
 
 # the products JAX's ``dots_saveable`` keeps: matmuls (einsum and matmul
 # reach these in ATen)
@@ -849,6 +937,11 @@ def check_trainable(cfg: ModelConfig) -> None:
     if cfg.arch_type not in TRAINED:
         raise ValueError(f"{cfg.name}: unknown arch_type {cfg.arch_type!r}; "
                          f"the port trains the families {tuple(TRAINED)}")
+    if _multiplied(cfg) and cfg.arch_type not in MULTIPLIED:
+        raise ValueError(f"{cfg.name}: the {cfg.arch_type} family does not "
+                         f"take the embedding, attention, residual or logit "
+                         f"multipliers; {MULTIPLIED} do")
+    check_ported(cfg)
 
 
 def _remat_wrapper(remat: bool, policy: str = "full"):
@@ -874,8 +967,17 @@ def _train_units(cfg: ModelConfig, params: Dict):
     hybrid one per group (its ``attn_every`` Mamba2 layers and the shared
     block, whose weights so get the sum of the gradients of their
     applications), then one per tail layer; for vlm one per group (its
-    ``cross_attn_every`` layers and its cross block).  Yields (function,
-    block), each unit's layers taken just before it runs (``_unstack``)."""
+    ``cross_attn_every`` layers and its cross block); for interleaved one
+    per layer of ``layer_types``, (kind, layer) from the stack of its kind.
+    Yields (function, block), each unit's layers taken just before it runs
+    (``_unstack``)."""
+    if cfg.arch_type == "interleaved":
+        n_mamba, n_attn = layer_counts(cfg)
+        stacks = {"mamba": iter(_unstack(params["blocks"], n_mamba)),
+                  "attention": iter(_unstack(params["attn_blocks"], n_attn))}
+        for kind in cfg.layer_types:
+            yield _interleaved_layer, (kind, next(stacks[kind]))
+        return
     blocks = _unstack(params["blocks"], cfg.num_layers)
     if cfg.arch_type == "audio":
         cross = _unstack(params["cross"], cfg.num_layers)
@@ -914,13 +1016,17 @@ def model_forward(params: Dict, batch: Dict, cfg: ModelConfig,
     each unit under ``_remat_wrapper(remat, remat_policy)``; the audio
     encoder (or the VLM projector) runs once before them, outside any
     checkpoint, as in JAX.  The loss is the mean CE plus the MoE layers'
-    summed aux losses (zero for the other families).
+    summed aux losses (zero for the other families).  The embedding's
+    output is multiplied by ``embedding_multiplier`` and the final norm's
+    divided by ``logits_scaling``, each where it is off its default.
     """
     check_trainable(cfg)
     run = _remat_wrapper(remat, remat_policy)
     dtype = torch_dtype(cfg.dtype)
     x = constrain(_embed(params["embed"].to(dtype), batch["tokens"]), BATCH,
                   None, None)
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cross_src = _cross_source(cfg, params, batch, dtype)
     for fn, block in _train_units(cfg, params):
@@ -931,7 +1037,9 @@ def model_forward(params: Dict, batch: Dict, cfg: ModelConfig,
             x = run(fn, cfg, block, x, cross_src)
         else:
             x = run(fn, cfg, block, x)
-    x = apply_norm(cfg.norm, x, params["final_norm"])
+    x = _norm(cfg, x, params["final_norm"])
+    if cfg.logits_scaling != 1.0:
+        x = x / cfg.logits_scaling
     loss_sum, count = chunked_cross_entropy(x, _lm_head(cfg, params),
                                             batch["labels"])
     ce = loss_sum / torch.clamp(count, min=1.0)

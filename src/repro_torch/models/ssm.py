@@ -20,6 +20,7 @@ from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels.ssd_scan import ssd_chunked
 from repro_torch.models.common import dense_init, rmsnorm
 from repro_torch.parallel.constraints import BATCH, MODEL, constrain, shard_map
+from repro_torch.utils.spans import span
 
 # leaves kept in f32 whatever the model's dtype, as JAX keeps and uses them
 F32_LEAVES = ("A_log", "D", "dt_bias")
@@ -60,15 +61,22 @@ def _split_proj(proj: torch.Tensor, d_in: int, n: int, nheads: int):
     return z, xbc, dt
 
 
-def ssm_prefill(params: Dict, xin: torch.Tensor, cfg: SSMConfig
-                ) -> Tuple[torch.Tensor, Dict]:
+def ssm_prefill(params: Dict, xin: torch.Tensor, cfg: SSMConfig,
+                eps: float = 1e-6) -> Tuple[torch.Tensor, Dict]:
     """The Mamba2 block over a whole sequence: in_proj -> conv -> SSD ->
-    gated norm -> out_proj.  xin: (B, L, d_model).
+    gated norm (at ``eps``) -> out_proj.  xin: (B, L, d_model).
 
     Returns (out (B, L, d_model), decode state): ``conv``, the last W-1
     conv inputs in the working dtype (zeros where the prompt is shorter),
-    and ``ssm``, the final (B, H, P, N) state in f32.
+    and ``ssm``, the final (B, H, P, N) state in f32.  The span
+    ``ssm.mixer`` holds the whole block, ``ssm.scan`` the SSD in it.
     """
+    with span("ssm.mixer"):
+        return _mixer(params, xin, cfg, eps)
+
+
+def _mixer(params: Dict, xin: torch.Tensor, cfg: SSMConfig, eps: float
+           ) -> Tuple[torch.Tensor, Dict]:
     bsz, l, d_model = xin.shape
     d_in, nheads, n = _dims(d_model, cfg)
     dtype = xin.dtype
@@ -97,13 +105,14 @@ def ssm_prefill(params: Dict, xin: torch.Tensor, cfg: SSMConfig
     dt = F.softplus(constrain(dt.float(), BATCH, None, MODEL)
                     + params["dt_bias"])
     a = -torch.exp(params["A_log"])
-    y, final = _sharded_ssd(xs, dt, a, bmat, cmat, cfg.chunk_size)
+    with span("ssm.scan"):
+        y, final = _sharded_ssd(xs, dt, a, bmat, cmat, cfg.chunk_size)
     # D x in f32 on y already rounded to x's dtype, as JAX does
     y = y + params["D"][:, None] * xs.float()
     y = y.reshape(bsz, l, d_in).to(dtype)
 
     y = y * F.silu(z)
-    y = rmsnorm(y, params["norm_scale"])
+    y = rmsnorm(y, params["norm_scale"], eps)
     out = y @ params["out_proj"].to(dtype)
     return out, {"conv": xp[:, l:], "ssm": final}
 
@@ -125,10 +134,10 @@ def _sharded_ssd(xs, dt, a, bmat, cmat, chunk: int):
         (0, ((BATCH, MODEL, None, None), (bsz, h, p, bmat.shape[-1]))))
 
 
-def ssm_forward(params: Dict, xin: torch.Tensor, cfg: SSMConfig
-                ) -> torch.Tensor:
+def ssm_forward(params: Dict, xin: torch.Tensor, cfg: SSMConfig,
+                eps: float = 1e-6) -> torch.Tensor:
     """Full Mamba2 block: in_proj -> conv -> SSD -> gated norm -> out_proj."""
-    return ssm_prefill(params, xin, cfg)[0]
+    return ssm_prefill(params, xin, cfg, eps)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -147,7 +156,8 @@ def init_ssm_state(batch: int, d_model: int, cfg: SSMConfig, *, device,
 
 
 def ssm_decode_step(params: Dict, xin: torch.Tensor, state: Dict,
-                    cfg: SSMConfig) -> Tuple[torch.Tensor, Dict]:
+                    cfg: SSMConfig, eps: float = 1e-6
+                    ) -> Tuple[torch.Tensor, Dict]:
     """One-token recurrent step.  xin: (B, 1, d_model).
 
     Returns (out (B, 1, d_model), new state); ``state`` is not changed.
@@ -182,6 +192,6 @@ def ssm_decode_step(params: Dict, xin: torch.Tensor, state: Dict,
     y = y.reshape(bsz, d_in).to(dtype)
 
     y = y * F.silu(z)
-    y = rmsnorm(y, params["norm_scale"])
+    y = rmsnorm(y, params["norm_scale"], eps)
     out = y @ params["out_proj"].to(dtype)
     return out[:, None], {"conv": hist[:, 1:], "ssm": h_new}

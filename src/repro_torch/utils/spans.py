@@ -39,13 +39,22 @@ The spans, where each opens, and the benchmark's metric that reads it
   ``moe_dispatch_span_ms.train``.
 - ``moe.combine``: the same, the gather back and the weighted sum;
   ``moe_dispatch_span_ms.train``.
+- ``ssm.mixer``: ``models/ssm.py::ssm_prefill``, one Mamba2 mixer from
+  its in_proj to its out_proj (the conv, the SSD, the D skip and the gated
+  norm between), in the forward and in its recompute under remat;
+  ``ssm_mixer_ms.train``.
+- ``ssm.scan``: inside ``ssm.mixer``, the SSD of ``kernels/ssd_scan/
+  ops.py::ssd_chunked``: the intra-chunk kernel, the recurrence across the
+  chunks and the inter-chunk output; ``ssm_scan_ms.train``.  Its backward
+  runs outside the span, under the autograd node
+  ``_SsdIntraChunkBackward`` and the nodes of the plain recurrence.
 """
 from __future__ import annotations
 
 import torch
 
 NAMES = ("elastic.step", "step.forward", "step.backward", "step.grad_sum", "step.update",
-         "moe.dispatch", "moe.combine")
+         "moe.dispatch", "moe.combine", "ssm.mixer", "ssm.scan")
 
 
 def span(name: str):

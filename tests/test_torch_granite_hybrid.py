@@ -1,0 +1,321 @@
+"""The interleaved family (granite-4.0-h-micro: Mamba2 and NoPE GQA layers,
+each followed by its SwiGLU, with granite's four multipliers) against the
+benchmark's plain reference (``bench/reference/granite_hybrid.py``), at a
+small size on the CPU; its layout, FLOPs and parameter count at the
+published widths; granite's multipliers at their defaults in olmo's and
+granite-moe's step; and the Mamba2 mixer's spans.  No JAX.
+"""
+import collections
+import dataclasses
+import hashlib
+import json
+import math
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+from torch.utils._python_dispatch import TorchDispatchMode
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [p for p in (str(ROOT / "src"), str(ROOT)) if p not in sys.path]
+
+from bench import harness, judge, weights  # noqa: E402
+from bench.reference import granite_hybrid  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.configs.base import TrainConfig  # noqa: E402
+from repro_torch.core.elastic import ElasticRuntime  # noqa: E402
+from repro_torch.models.model import MULTIPLIED, check_ported  # noqa: E402
+from repro_torch.training.state import init_train_state  # noqa: E402
+from repro_torch.training.step import loss_and_grads  # noqa: E402
+from repro_torch.utils.tree import tree_leaves  # noqa: E402
+
+CELL = "granite-h-micro-train-s1"
+KINDS = ["mamba", "attention", "mamba", "mamba"]
+SEED = 3290000019
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread (see ``tests/test_torch_donate.py``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def tiny(dtype="float32", chunk=16):
+    """The cell at a small size: 4 layers, d 64, GQA 4/2, state 16, 4
+    SSD heads of 32, the port's chunk 8 and the reference's ``chunk``,
+    every multiplier at granite's published value (off its default), 2
+    rows of 32 tokens in one slice."""
+    c = harness.load_cell(CELL)
+    m = dict(c.config["model"])
+    m.update(num_layers=4, layer_types=KINDS, d_model=64, num_heads=4,
+             num_kv_heads=2, d_ff=128, vocab_size=256, dtype=dtype,
+             ssm=dict(m["ssm"], state_dim=16, head_dim=32, chunk_size=8))
+    c.config = dict(c.config, model=m, reference=dict(
+        c.config["reference"], ssd_chunk=chunk))
+    c.traffic = dict(c.traffic, seq_len=32, global_batch=2, world=2,
+                     physical=2)
+    return c
+
+
+def test_the_tiny_cell_is_off_every_default():
+    cfg, _ = harness.program_config(tiny())
+    assert (cfg.embedding_multiplier, cfg.attention_multiplier,
+            cfg.residual_multiplier, cfg.logits_scaling, cfg.norm_eps) == (
+        12.0, 0.015625, 0.22, 8.0, 1e-5)
+    assert cfg.ssm.chunk_size == 8 and cfg.rope_theta == 0.0
+
+
+def _reference_grads(c, seed):
+    """The reference's loss and gradients of one batch on the drawn
+    weights, each stacked leaf's layers stacked again."""
+    model = c.config["model"]
+    init = weights.initial(c.config, seed, "cpu")
+    paths = [k for k, _ in weights.leaves(weights.layout(c.config))]
+    net = granite_hybrid.GraniteHybrid(model, c.config["reference"])
+    p = {}
+    for path in paths:
+        w = init(path)
+        if path.split(".")[0] in granite_hybrid.STACKS.values():
+            p[path] = [w[i].detach().requires_grad_() for i in range(len(w))]
+        else:
+            p[path] = w.requires_grad_()
+    tokens, labels = _batch(c, seed)
+    loss = net.loss(p, tokens, labels)
+    loss.backward()
+    loss = loss.detach()
+    grads = {k: torch.stack([x.grad for x in v]) if isinstance(v, list)
+             else v.grad for k, v in p.items()}
+    return loss.item(), grads
+
+
+def _batch(c, seed):
+    from bench import traffic
+    return traffic.ZipfTokens(c.traffic, c.config["model"]["vocab_size"],
+                              seed, "cpu").batch(0)
+
+
+def test_loss_and_every_gradient_equal_the_reference():
+    """At f32 the port's loss and each leaf's gradient equal the plain
+    reference's to f32 rounding, the reference scanning the SSD in chunks
+    of 16 where the port scans in chunks of 8."""
+    c = tiny()
+    cfg, tcfg = harness.program_config(c)
+    state = weights.train_state(c.config, SEED, "cpu")
+    tokens, labels = _batch(c, SEED)
+    loss, grads = loss_and_grads(state["params"],
+                                 {"tokens": tokens, "labels": labels},
+                                 cfg, tcfg)
+    ref_loss, ref_grads = _reference_grads(c, SEED)
+    assert float(loss) == pytest.approx(ref_loss, rel=1e-6)
+    mine = dict(weights.leaves(grads))
+    assert set(mine) == set(ref_grads)
+    for path, g in ref_grads.items():
+        scale = float(g.abs().max())
+        assert scale > 0, path
+        assert float((mine[path] - g).abs().max()) <= 2e-5 * scale, path
+
+
+def test_two_steps_with_adamw_equal_the_reference():
+    """The job's first two steps (AdamW, its clip and the warmup's lr)
+    through ``ElasticRuntime``, donated, against the reference's: every
+    gap of ``correct`` at f32 rounding."""
+    c = tiny()
+    rt = harness.build(c, SEED, "cpu")
+    prog = harness.first_steps(rt, c, SEED, "cpu")
+    numbers = judge.gaps(prog, harness.reference_readings(c, SEED, "cpu"))
+    assert len(prog["losses"]) == 2
+    assert all(v < 1e-5 for v in numbers.values()), numbers
+
+
+def test_the_fp8_control_fails_where_the_bf16_program_holds():
+    """At bf16 the program stays within limits that the fp8 control
+    breaks, on each of three seeds (limits from seeds 21-23 at this size:
+    the program at most 1.3e-3 by the worst leaf's step-1 gradient, the
+    control at least 1.2e-2)."""
+    c = tiny(dtype="bfloat16")
+    limits = {"grad1_gap": 5e-3}
+    for seed in (21, 22, 23):
+        rt = harness.build(c, seed, "cpu")
+        prog = harness.first_steps(rt, c, seed, "cpu")
+        ref = harness.reference_readings(c, seed, "cpu")
+        assert judge.holds(judge.gaps(prog, ref), limits)
+        control = harness.reference_readings(c, seed, "cpu", matmul="fp8")
+        assert not judge.holds(judge.gaps(control, ref), limits)
+
+
+@pytest.mark.parametrize("small", [True, False], ids=["tiny", "published"])
+def test_layout_is_the_ports_train_state(small):
+    c = tiny() if small else harness.load_cell(CELL)
+    cfg, tcfg = harness.program_config(c)
+    state = init_train_state(cfg, tcfg, device="meta")
+    theirs = {k: tuple(v.shape) for k, v in weights.leaves(state["params"])}
+    assert theirs == dict(weights.leaves(weights.layout(c.config)))
+
+
+def test_parameter_count_at_the_published_widths():
+    """3,191,396,096: the table 205,520,896, each Mamba2 layer with its MLP
+    and norms 76,182,976, each attention layer with its MLP 60,821,504,
+    the final norm 2,048."""
+    cfg, tcfg = harness.program_config(harness.load_cell(CELL))
+    state = init_train_state(cfg, tcfg, device="meta")
+    params = dict(weights.leaves(state["params"]))
+    assert sum(math.prod(v.shape) for v in params.values()) == 3_191_396_096
+    per = {stack: sum(math.prod(v.shape[1:]) for k, v in params.items()
+                      if k.startswith(stack + "."))
+           for stack in ("blocks", "attn_blocks")}
+    assert per == {"blocks": 76_182_976, "attn_blocks": 60_821_504}
+    assert cfg.layer_types.count("mamba") == 36
+    assert [i for i, k in enumerate(cfg.layer_types)
+            if k == "attention"] == [5, 15, 25, 35]
+
+
+def test_step_flops_at_the_published_widths():
+    """6 N T over 3,190,292,480 matrix parameters, 4 attention layers' and
+    36 Mamba2 layers' products, at 4 x 4096."""
+    model = harness.load_cell(CELL).config["model"]
+    flops = granite_hybrid.step_flops(model, 4096, 4)
+    pairs = 4096 * 4097 // 2
+    attn = 3 * 4 * 64 * pairs * 4 * 32
+    ssd = 3 * 2 * 16384 * 128 * 64 * (128 + 64)
+    assert flops == 6 * 3_190_292_480 * 16384 + 4 * attn + 36 * ssd
+    assert flops == 322_484_129_759_232
+    assert isinstance(flops, int)
+
+
+def test_the_parent_config_cannot_express_it():
+    """The benchmark's configuration uses every field the port added."""
+    model = harness.load_cell(CELL).config["model"]
+    assert {"layer_types", "embedding_multiplier", "attention_multiplier",
+            "residual_multiplier", "logits_scaling", "norm_eps"} <= set(model)
+
+
+def test_serving_refuses_the_family_and_the_multipliers():
+    cfg, _ = harness.program_config(tiny())
+    check_ported(cfg)
+    with pytest.raises(ValueError, match="not served"):
+        check_ported(cfg, serving=True)
+    olmo = dataclasses.replace(get_smoke_config("olmo-1b"),
+                               residual_multiplier=0.5)
+    with pytest.raises(ValueError, match="multipliers"):
+        check_ported(olmo, serving=True)
+    vlm = dataclasses.replace(get_smoke_config("llama-3.2-vision-11b"),
+                              logits_scaling=2.0)
+    with pytest.raises(ValueError, match="multipliers"):
+        init_train_state(vlm, TrainConfig(), device="meta")
+
+
+# ------------------------------------------- the multipliers at their default
+class _Ops(TorchDispatchMode):
+    """The name of every operator dispatched, in order."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+def _step_ops(cfg):
+    """The operators of one training step's forward and backward (full
+    remat) of ``cfg`` on 2 x 32 tokens, and its loss."""
+    tcfg = TrainConfig(remat=True, remat_policy="full")
+    state = init_train_state(cfg, tcfg, 0, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32),
+                           generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    with _Ops() as mode:
+        loss, _ = loss_and_grads(state["params"], batch, cfg, tcfg)
+    return mode.names, float(loss)
+
+
+# the parent tree's operators (before the multipliers existed), counted
+# and hashed by ``_step_ops``: (count, first 16 hex digits of the sha256
+# of the names joined by newlines, loss)
+PARENT_OPS = {"olmo-1b": (973, "8308650bc894a74c", 6.318905830383301),
+              "granite-moe-3b-a800m": (1429, "46f67266fecb5838",
+                                       6.346380233764648)}
+OFF_DEFAULT = {"embedding_multiplier": 12.0, "attention_multiplier": 1 / 64,
+               "residual_multiplier": 0.22, "logits_scaling": 8.0}
+
+
+@pytest.mark.parametrize("arch", sorted(PARENT_OPS))
+def test_multipliers_at_their_default_launch_nothing(arch):
+    """olmo's and granite-moe's step dispatches exactly the parent tree's
+    operators, in its order, to the same loss.  In granite-moe, whose
+    family takes the multipliers, each one off its default adds operators,
+    so the check would see one that ran at its default; olmo's dense
+    family refuses them."""
+    cfg = get_smoke_config(arch)
+    names, loss = _step_ops(cfg)
+    count, digest, parent_loss = PARENT_OPS[arch]
+    assert len(names) == count
+    assert hashlib.sha256("\n".join(names).encode()).hexdigest()[:16] \
+        == digest
+    assert loss == parent_loss
+    for field, value in OFF_DEFAULT.items():
+        off = dataclasses.replace(cfg, **{field: value})
+        if cfg.arch_type not in MULTIPLIED:
+            with pytest.raises(ValueError, match="multipliers"):
+                _step_ops(off)
+            continue
+        more, _ = _step_ops(off)
+        assert len(more) > count, field
+
+
+# ------------------------------------------------------------------- spans
+def _run(profiled, splice):
+    c = tiny(dtype="bfloat16")
+    cfg, tcfg = harness.program_config(c)
+    rt = ElasticRuntime(cfg, tcfg, 2, 2 // splice, 4, 32, device="cpu",
+                        donate=True)
+    if not profiled:
+        return rt.run_steps(2), rt.state, None
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        recs = rt.run_steps(2)
+    return recs, rt.state, [e for e in prof.events()
+                            if e.name.startswith("ssm.")]
+
+
+@pytest.fixture(scope="module", params=[1, 2], ids=["splice1", "splice2"])
+def runs(request, one_thread):
+    return request.param, _run(True, request.param), _run(False,
+                                                          request.param)
+
+
+def test_mixer_spans_open_twice_a_mamba_layer_and_slice(runs):
+    """``ssm.mixer`` and ``ssm.scan`` open once a Mamba2 layer and slice in
+    the forward and once in its recompute; as host operators, not user
+    annotations."""
+    splice, (_, _, events), _ = runs
+    count = collections.Counter(e.name for e in events)
+    assert count == {"ssm.mixer": 2 * 3 * splice * 2,
+                     "ssm.scan": 2 * 3 * splice * 2}
+    for e in events:
+        assert e.device_type == torch.autograd.DeviceType.CPU
+        assert not e.is_user_annotation, e.name
+
+
+def test_mixer_spans_leave_losses_and_state_bit_for_bit(runs):
+    _, (recs, state, _), (recs0, state0, _) = runs
+    assert [r["loss"] for r in recs] == [r["loss"] for r in recs0]
+    a, b = tree_leaves(state), tree_leaves(state0)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_the_benchmark_reads_the_mixer_spans():
+    """The readers of ``ssm_mixer_ms.train`` and ``ssm_scan_ms.train`` are
+    listed for the cell and name the spans."""
+    spec = json.loads((ROOT / "BENCHMARK.json").read_text())
+    cells = {m["name"]: m.get("workloads") for m in spec["per_layer"]}
+    for name, span in (("ssm_mixer_ms.train", "ssm.mixer"),
+                       ("ssm_scan_ms.train", "ssm.scan")):
+        assert cells[name] == [CELL]
+        text = (ROOT / "bench" / "metrics" / f"{name}.py").read_text()
+        assert f'"{span}"' in text

@@ -22,8 +22,9 @@ from repro_torch.utils.tree import tree_leaves
 
 ROOT = Path(__file__).resolve().parents[1]
 READERS = ("grad_sum_ms.train", "slice_idle_ms.train",
-           "boundary_idle_ms.train", "moe_dispatch_span_ms.train")
-PREFIXES = ("elastic.", "step.", "moe.")
+           "boundary_idle_ms.train", "moe_dispatch_span_ms.train",
+           "ssm_mixer_ms.train", "ssm_scan_ms.train")
+PREFIXES = ("elastic.", "step.", "moe.", "ssm.")
 W, G, S, STEPS = 4, 8, 32, 2
 CASES = [(arch, splice) for arch in ("olmo-1b", "granite-moe-3b-a800m")
          for splice in (1, 2)]
@@ -89,12 +90,14 @@ def test_spans_are_host_operators_not_annotations(runs):
 
 def test_span_names_are_listed_and_read_by_the_benchmark(runs):
     """The names a run records are ``spans.NAMES`` (the MoE's in the MoE
-    model), and the readers of the benchmark name each of them."""
+    model; the Mamba2 mixer's in neither, ``test_torch_granite_hybrid.py``
+    counts those), and the readers of the benchmark name each of them."""
     arch, _, (_, _, events), _ = runs
     seen = {e.name for e in events}
     moe = {"moe.dispatch", "moe.combine"}
-    assert seen == (set(NAMES) if arch.startswith("granite")
-                    else set(NAMES) - moe)
+    ssm = {"ssm.mixer", "ssm.scan"}
+    assert seen == (set(NAMES) - ssm if arch.startswith("granite")
+                    else set(NAMES) - moe - ssm)
     literals = set()
     for name in READERS:
         tree = ast.parse((ROOT / "bench" / "metrics"

@@ -66,6 +66,22 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    launch) and the plain version beside the kernel's bound, with cuBLAS's
    time for the bare ``h @ W`` GEMM printed for context (no PyTorch call
    computes (lse, pick)).
+2f. Hold ``fused_ce_bwd`` (the kernel's coefficients p as bf16 hi + lo,
+   and its two products on the tensor cores) against the plain f32
+   backward at each benchmark cell's shape, all tied: olmo-1b at T 16384
+   and at splice 4's T 4096 (d 2048, V 50304), granite-moe-3b-a800m's (d
+   1536, V 49155) and granite-4.0-h-micro's (d 2048, V 100352); at an
+   untied MN-major head read in place (zamba2-1.2b's (2048, 32000)) and a
+   ragged untied one the wrapper copies for TMA; in the loss form, and at
+   the small shape in the statistics' forms (g_lse or g_pick alone).
+   Print the relative Frobenius gap of dh and dW to the plain f32
+   outputs (bound 2^-8) and to those outputs rounded to bf16, as the
+   plain backward gives them in bf16 (bound 2^-11); the median relative
+   error of the entries of the last vocabulary block's p, hi + lo, against
+   the plain f32 p (bound 2^-14, which hi alone misses: the check that
+   sees the lo term); the launches
+   (one a vocabulary block); and the kernel path's time beside its bound
+   (the least work: three products) and the plain backward's time.
 2d. Hold ``fingerprint_u32`` against its plain version bit for bit at the
    shapes of ``tests/test_kernels.py``, a bf16 and an f16 array, a length
    that is not a multiple of the 32,768-word block (also through a view
@@ -116,7 +132,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    read just after, with each step's launches asserted (1
    ``fused_ce_stats``, 32 ``swa_flash`` and 16 ``swa_flash_bwd`` per
    slice: 16 layers in the forward and 16 again in remat's recomputation,
-   and 16 backward), its time, tokens/s,
+   and 16 backward; and ``fused_ce_bwd`` once a vocabulary block of the
+   slice's one call, 9 blocks at T 16384 and 5 at T 8192: every training
+   path below asserts its blocks a slice too), its time, tokens/s,
    peak memory and share of the bf16 peak; a profile of one step; the
    first loss against ln V + sigma^2 / 2; splice 1 against splice 2 from
    one state at full width with 4 layers.
@@ -400,11 +418,38 @@ CE_TIMED = [(CE_CASES[0], ""), (CE_CASES[1], "_t8192"),
 # Both sum the same f32 products (exact for bf16 operands) in another
 # order, over d <= 2048 terms; logits are about 1 and lse about 11
 CE_TOL = dict(rtol=1e-5, atol=1e-4)
+# fused_ce_bwd vs the plain f32 backward: (T, d, V, head as embed.T), bf16
+CE_BWD_CASES = [
+    (16384, 2048, 50304, True),   # olmo-1b, splice 1 (also 16 x 1024)
+    (4096, 2048, 50304, True),    # olmo-1b, splice 4: one slice of 1 x 4096
+    (16384, 1536, 49155, True),   # granite-moe-3b-a800m, tied
+    (16384, 2048, 100352, True),  # granite-4.0-h-micro
+    (16384, 2048, 32000, False),  # zamba2-1.2b: an untied MN-major head
+    (300, 256, 777, False),       # ragged; the untied head copied for TMA
+]
+# p enters its products as hi + lo (about 2^-16 of each entry) and dh and
+# dW round once to bf16 (2^-9): a relative Frobenius gap of about 1e-3 to
+# the plain f32 outputs
+CE_BWD_TOL = 2 ** -8
+# ... and to those outputs rounded to bf16, as the plain backward gives
+# them: hi + lo (f32 sums about 2^-16 apart) rounds to the same bf16 but
+# where a sum lies near a rounding boundary.  p as one bf16 term (2^-9 of
+# each entry) fails it only where p's large entries are not bf16 numbers
+# (the small shape: g = 1/300); at the cells' shapes g = 1/T is a power
+# of two and the label's term, which sets dh and dW, rounds almost exactly
+CE_BWD_PLAIN_TOL = 2 ** -11
+# The median relative error of the entries of one block's p, hi + lo,
+# against the plain f32 p: 2^-17 of each entry and the logits' f32 sums in
+# another order; hi alone reads about 2^-10.  (A norm of the whole p would
+# be set by the label's entries, -g (1 - softmax), which round almost
+# exactly whatever the precision, as dh and dW are.)
+CE_BWD_P_TOL = 2 ** -14
 
 BATCH, PROMPT, NEW_TOKENS = 4, 512, 32
 # the serving paths, each with its kernels' launches per prefill
 PATHS = [(arch, dict(zip(("swa_flash", "ssd_intra_chunk", "fused_ce_stats",
-                          "fingerprint_u32", "swa_flash_bwd"), counts)))
+                          "fingerprint_u32", "swa_flash_bwd", "fused_ce_bwd"),
+                         (*counts, 0))))
          for arch, counts in (("olmo-1b", (16, 0, 0, 0, 0)),
                               ("mamba2-130m", (0, 24, 0, 0, 0)),
                               ("zamba2-1.2b", (6, 38, 0, 0, 0)),
@@ -449,7 +494,9 @@ INTERLEAVED_TRAIN_PATH = "granite-h-micro-train"
 # gradient sum, 16 bytes a parameter (54 GB), where the functional step
 # holds 28 at its update (94 GB, more than the card)
 # Each training path: its kernels' launches per slice (remat runs each
-# layer's forward twice), its gradient leaves, the bounds of its first
+# layer's forward twice; ``fused_ce_bwd``'s, one a vocabulary block of its
+# one call a slice, follow from the slice's tokens and V:
+# ``kernels/fused_ce/ce.py::bwd_launches``), its gradient leaves, the bounds of its first
 # loss (about ln V + sigma^2 / 2 with sigma^2 = d * 0.02^2: from ln V to
 # 0.36 above that) and of its kernel path against its plain path.  For
 # mamba2 the bounds were set before its first run on a card: the SSD
@@ -490,7 +537,8 @@ TRAIN_SPECS = {
                          donate=True,
                          per_slice={"swa_flash": 64, "swa_flash_bwd": 32,
                                     "fused_ce_stats": 1},
-                         copies_per_slice={"fused_ce_stats": 1},
+                         copies_per_slice={"fused_ce_stats": 1,
+                                           "fused_ce_bwd": 1},
                          leaves=13, named=("blocks/moe/router",
                                            "blocks/moe/wi", "blocks/moe/wg",
                                            "blocks/moe/wo", "head"),
@@ -501,7 +549,8 @@ TRAIN_SPECS = {
     AUDIO_TRAIN_PATH: dict(arch="whisper-base", phase="10",
                            per_slice={"swa_flash": 12, "swa_flash_bwd": 6,
                                       "fused_ce_stats": 1},
-                           copies_per_slice={"fused_ce_stats": 1},
+                           copies_per_slice={"fused_ce_stats": 1,
+                                           "fused_ce_bwd": 1},
                            leaves=33, named=("cross/gate", "cross/attn/wk",
                                              "encoder/blocks/attn/wq",
                                              "encoder/final_norm/scale",
@@ -1155,6 +1204,125 @@ def phase_ce_kernel(torch, ce, ce_ref, fused_cross_entropy):
     return dict(times, max_abs_err=main_err, library_ms=None)
 
 
+def phase_ce_bwd_kernel(torch, ce, ce_ref):
+    from repro_torch.kernels.fused_ce.ops import fused_ce_bwd_cost
+
+    print("\n== phase 2f: fused_ce_bwd against the plain f32 backward on the "
+          "card", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    stats = {}
+    worst = worst_plain = worst_p = 0.0
+    for t, d, v, tied in CE_BWD_CASES:
+        h, w, lab = _ce_inputs(torch, gen, t, d, v, torch.bfloat16, tied)
+        lse, _ = ce_ref.fused_ce_stats_ref(h, w, lab.clamp(min=0))
+        g = (lab >= 0).float() / t
+        forms = [("loss", g, -g)]
+        if t < 1024:
+            forms += [("g_lse alone", torch.randn(t, generator=gen,
+                                                  device="cuda"), None),
+                      ("g_pick alone", None,
+                       torch.randn(t, generator=gen, device="cuda"))]
+        for form, g_lse, g_pick in forms:
+            copies = ce.fused_ce_bwd.copies
+            launches = ce.fused_ce_bwd.launches
+            dh, dw = ce.fused_ce_bwd(h, w, lab, lse, g_lse, g_pick)
+            torch.cuda.synchronize()
+            copies = ce.fused_ce_bwd.copies - copies
+            launches = ce.fused_ce_bwd.launches - launches
+            want_copies = int(not tied and v % 8 != 0)
+            if copies != want_copies or launches != ce.bwd_launches(t, v):
+                raise AssertionError(f"{copies} head copies (expected "
+                                     f"{want_copies}), {launches} launches "
+                                     f"(expected {ce.bwd_launches(t, v)}) "
+                                     f"at {(t, d, v)}")
+            want = ce_ref.fused_ce_bwd_ref(h.float(), w.float(), lab, lse,
+                                           g_lse, g_pick)
+            gaps = [((got.float() - ref).norm() / ref.norm()).item()
+                    for got, ref in zip((dh, dw), want)]
+            # the plain backward's own outputs in bf16: its f32 sums
+            # rounded once
+            plain = [ref.to(torch.bfloat16).float() for ref in want]
+            plain_gaps = [((got.float() - ref).norm() / ref.norm()).item()
+                          for got, ref in zip((dh, dw), plain)]
+            print(f"T={t} d={d} V={v} head "
+                  f"{'embed.T' if tied else '(d, V)'} ({copies} copied for "
+                  f"TMA, {launches} launches), {form}: relative Frobenius "
+                  f"gap to the plain f32 backward dh {gaps[0]!r}, dW "
+                  f"{gaps[1]!r} (bound {CE_BWD_TOL!r}); to its outputs in "
+                  f"bf16 dh {plain_gaps[0]!r}, dW {plain_gaps[1]!r} (bound "
+                  f"{CE_BWD_PLAIN_TOL!r})", flush=True)
+            if not (torch.isfinite(dh).all() and torch.isfinite(dw).all()) \
+                    or not max(gaps) <= CE_BWD_TOL \
+                    or not max(plain_gaps) <= CE_BWD_PLAIN_TOL:
+                raise AssertionError(f"fused_ce_bwd off the plain backward "
+                                     f"at {(t, d, v)}, {form}")
+            worst = max(worst, *gaps)
+            worst_plain = max(worst_plain, *plain_gaps)
+            del plain
+            # the last block's p, hi + lo and hi alone, against the plain
+            # f32 p of its columns; zeros where it is 0 and past V
+            v0 = (ce.bwd_launches(t, v) - 1) * ce.vocab_block(
+                t, v, ce.tile(torch.bfloat16)[1])
+            hi, lo = ce.fused_ce_bwd_p(h, w, lab, lse, g_lse, g_pick, v0,
+                                       v - v0).float().unbind(1)
+            p_ref = ce_ref.fused_ce_bwd_p_ref(h, w[:, v0:], lab - v0, lse,
+                                              g_lse, g_pick)
+            nz = p_ref != 0
+            p_gaps = [((x[:, :v - v0] - p_ref).abs()[nz] / p_ref.abs()[nz])
+                      .median().item() for x in (hi + lo, hi)]
+            print(f"  p of the vocab columns [{v0}, {v}): median relative "
+                  f"error of its entries, hi + lo against the plain f32 p "
+                  f"{p_gaps[0]!r} (bound {CE_BWD_P_TOL!r}); of hi alone "
+                  f"{p_gaps[1]!r}", flush=True)
+            if not p_gaps[0] <= CE_BWD_P_TOL or hi[:, v - v0:].any() or \
+                    lo[:, v - v0:].any() or (hi + lo)[:, :v - v0][~nz].any():
+                raise AssertionError(f"fused_ce_bwd's p off the plain p at "
+                                     f"{(t, d, v)}, {form}")
+            worst_p = max(worst_p, p_gaps[0])
+            del hi, lo, p_ref
+            del dh, dw, want
+        if t >= 4096:
+            key = f"_t{t}_d{d}_v{v}{'' if tied else '_untied'}"
+
+            def kernel():
+                return ce.fused_ce_bwd(h, w, lab, lse, g, -g)
+
+            kernel_ms = time_ms(torch, kernel, 5)
+            plain_ms = time_ms(torch, lambda: ce_ref.fused_ce_bwd_ref(
+                h, w, lab, lse, g, -g), 2, 1)
+            kernel_ms_2 = time_ms(torch, kernel, 5)
+            p_ms = device_ms(torch, kernel, "ce_bwd_p_kernel", 3)
+            bound_ms, bound_by = _dtype_bound(
+                torch, fused_ce_bwd_cost(t, d, v, 2), torch.bfloat16)
+            print(f"times at T={t} d={d} V={v} (mean of back-to-back calls): "
+                  f"kernel path {kernel_ms!r} ms then {kernel_ms_2!r} ms (of "
+                  f"which the p kernel {p_ms!r} ms, device), plain "
+                  f"{plain_ms!r} ms, bound {bound_ms!r} ms ({bound_by}: the "
+                  f"three products of the least work); library: none (no "
+                  f"PyTorch call computes this backward)", flush=True)
+            stats.update({f"{name}{key}": val for name, val in dict(
+                ms=(kernel_ms + kernel_ms_2) / 2, p_kernel_ms=p_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by).items()})
+        del h, w, lab, lse
+        torch.cuda.empty_cache()
+    t, d, v, tied = CE_BWD_CASES[-1]
+    h, w, lab = _ce_inputs(torch, gen, t, d, v, torch.bfloat16, tied)
+    lse, _ = ce_ref.fused_ce_stats_ref(h, w, lab.clamp(min=0))
+    _opcheck(torch, "fused_ce_bwd",
+             (h, w, lab, lse, (lab >= 0).float(), None))
+    # the kernels line's ms: olmo-1b at splice 1
+    main = "_t16384_d2048_v50304"
+    return dict(stats, ms=stats[f"ms{main}"],
+                plain_ms=stats[f"plain_ms{main}"],
+                bound_ms=stats[f"bound_ms{main}"],
+                bound_by=stats[f"bound_by{main}"], max_abs_err=None,
+                max_rel_frobenius_gap=worst,
+                max_rel_frobenius_gap_bf16_plain=worst_plain,
+                max_median_rel_err_p=worst_p, library_ms=None)
+
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Run the model with the kernels' plain versions on the card: the
@@ -1165,7 +1333,8 @@ def plain_versions():
     import torch
 
     from repro_torch.kernels.fused_ce import ops as ce_ops
-    from repro_torch.kernels.fused_ce.ref import fused_ce_stats_ref
+    from repro_torch.kernels.fused_ce.ref import (fused_ce_bwd_ref,
+                                                  fused_ce_stats_ref)
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
     from repro_torch.kernels.swa_attention import ops as swa_ops
@@ -1186,6 +1355,7 @@ def plain_versions():
         return swa_attention_bwd_ref(q, k, v, dout, window)
 
     names = ((ce_ops, "fused_ce_stats", fused_ce_stats_ref),
+             (ce_ops, "fused_ce_bwd", fused_ce_bwd_ref),
              (swa_ops, "swa_flash", swa_plain),
              (swa_ops, "swa_flash_bwd", swa_bwd_plain),
              (ssd_ops, "ssd_intra_chunk", ssd_intra_chunk_ref))
@@ -1232,6 +1402,7 @@ def phase_train(torch, card, counters, path=TRAIN_PATH):
     time at splice 2 in seconds."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core.elastic import ElasticRuntime
+    from repro_torch.kernels.fused_ce.ce import bwd_launches
     from repro_torch.optim.adamw import global_norm
     from repro_torch.training.state import init_train_state
     from repro_torch.training.step import loss_and_grads
@@ -1374,6 +1545,8 @@ def phase_train(torch, card, counters, path=TRAIN_PATH):
         s = rec["splice"]
         want = {name: spec["per_slice"].get(name, 0) * s
                 for name in counters}
+        want["fused_ce_bwd"] = s * bwd_launches(tokens_per_step // s,
+                                                cfg.vocab_size)
         share = 6 * n_active * tokens_per_step / (ms / 1e3) / \
             _peak_flops(torch, torch.bfloat16)
         print(f"[{card}] step {rec['step']} splice {s}: {ms!r} ms, "
@@ -1809,6 +1982,7 @@ def phase_migrate(torch, card, counters, job, step_s):
     path's launch counts."""
     from repro_torch.core import CheckpointStore, migrate
     from repro_torch.kernels.checksum import fingerprint
+    from repro_torch.kernels.fused_ce.ce import bwd_launches
     from repro_torch.utils import constants
     from repro_torch.utils.tree import tree_flatten
 
@@ -1930,6 +2104,10 @@ def phase_migrate(torch, card, counters, job, step_s):
             "swa_flash_bwd": cfg.num_layers * (splice_quiesce * len(recs) + 2),
             "ssd_intra_chunk": 0,
             "fused_ce_stats": splice_quiesce * len(recs) + 2,
+            # one call a slice, one launch a vocabulary block of it
+            "fused_ce_bwd": splice_quiesce * len(recs) * bwd_launches(
+                gb * seq // splice_quiesce, cfg.vocab_size)
+            + 2 * bwd_launches(gb * seq, cfg.vocab_size),
             "fingerprint_u32": 2 * len(before)}
     print(f"launches on {MIGRATE_PATH}: {launches}; peak device memory "
           f"{torch.cuda.max_memory_allocated()} bytes", flush=True)
@@ -2036,7 +2214,8 @@ def phase_fleet_sim(counters):
 
 def _copies(counters) -> dict:
     """The copies each wrapper has made of an operand its kernel's TMA
-    cannot read in place (``swa_flash``, ``fused_ce_stats``)."""
+    cannot read in place (``swa_flash``, ``fused_ce_stats``,
+    ``fused_ce_bwd``)."""
     return {name: fn.copies for name, fn in counters.items()
             if hasattr(fn, "copies")}
 
@@ -2375,7 +2554,8 @@ def main() -> int:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}; card: {card}", flush=True)
     print(f"host memory: {_host_memory()} bytes", flush=True)
-    sources = (swa.SOURCE, swa.BWD_SOURCE, ssd.SOURCE, ce.SOURCE, FP_SOURCE)
+    sources = (swa.SOURCE, swa.BWD_SOURCE, ssd.SOURCE, ce.SOURCE,
+               ce.BWD_SOURCE, FP_SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(_build.build, sources))
@@ -2391,11 +2571,13 @@ def main() -> int:
     ssd_stats = phase_ssd_kernel(torch, ssd.ssd_intra_chunk, ssd_chunked,
                                  ssd_ref)
     ce_stats = phase_ce_kernel(torch, ce, ce_ref, fused_cross_entropy)
+    ce_bwd_stats = phase_ce_bwd_kernel(torch, ce, ce_ref)
     fp_stats = phase_fingerprint_kernel(torch, fingerprint_u32, fp_ops, fp_ref)
     counters = {"swa_flash": swa.swa_flash,
                 "swa_flash_bwd": swa.swa_flash_bwd,
                 "ssd_intra_chunk": ssd.ssd_intra_chunk,
                 "fused_ce_stats": ce.fused_ce_stats,
+                "fused_ce_bwd": ce.fused_ce_bwd,
                 "fingerprint_u32": fingerprint_u32}
     tools = (get_config, ServingEngine, prefill_fn, decode_step_fn)
     by_path = {arch: phase_serve(torch, card, arch, expected, counters, tools)
@@ -2447,6 +2629,10 @@ def main() -> int:
             ("fused_ce_stats", "cuda",
              "src/repro_torch/kernels/fused_ce/csrc/fused_ce_stats.cu",
              "src/repro/kernels/fused_ce/ce.py:67", ce_stats),
+            ("fused_ce_bwd", "cuda",
+             "src/repro_torch/kernels/fused_ce/csrc/fused_ce_bwd.cu",
+             "none: JAX differentiates chunked_cross_entropy through XLA",
+             ce_bwd_stats),
             ("fingerprint_u32", "cuda",
              "src/repro_torch/kernels/checksum/csrc/fingerprint_u32.cu",
              "src/repro/kernels/checksum/fingerprint.py:55", fp_stats)):

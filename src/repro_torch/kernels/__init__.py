@@ -10,7 +10,12 @@
   ``repro.kernels.ssd_scan.ssd.ssd_intra_chunk``.
 - ``fused_ce`` — streaming-vocab cross-entropy statistics (lse, label
   logit) in CUDA C++ (``csrc/fused_ce_stats.cu``), in place of the Pallas
-  TPU kernel ``repro.kernels.fused_ce.ce.fused_ce_stats``.
+  TPU kernel ``repro.kernels.fused_ce.ce.fused_ce_stats``, and their
+  backward (``csrc/fused_ce_bwd.cu``: the logits recomputed and turned into
+  the gradient's coefficients, whose two products run on the tensor
+  cores), which replaces no TPU kernel: JAX differentiates
+  ``chunked_cross_entropy`` through XLA.  The two share the logits tile of
+  ``include/ce_logits.cuh``.
 - ``checksum`` — the 128-bit content fingerprint of a buffer (four uint32
   lanes of position-weighted sums) in CUDA C++
   (``csrc/fingerprint_u32.cu``), in place of the Pallas TPU kernel
@@ -21,8 +26,7 @@ binding, ``ops.py`` (the public wrapper, same signature as the JAX one) and
 ``ref.py`` (the plain PyTorch version that CPU tensors take and that the
 tests and ``chip_smoke.py`` hold the kernel against).  ``_build.py``
 compiles the sources at first use.  ``swa_attention`` and ``fused_ce``
-are autograd functions; ``swa_attention``'s bf16 backward is the kernel
-``swa_flash_bwd``, ``fused_ce``'s backward is plain PyTorch (the Pallas
-kernels have none).  Every Pallas kernel of the JAX package has its
-counterpart here.
+are autograd functions; their bf16 backwards are the kernels
+``swa_flash_bwd`` and ``fused_ce_bwd`` (the Pallas kernels have none).
+Every Pallas kernel of the JAX package has its counterpart here.
 """

@@ -1,8 +1,9 @@
-"""The five kernels as ``torch.library`` ops, and each op's cost formula.
+"""The six kernels as ``torch.library`` ops, and each op's cost formula.
 
 Each kernel is one op in the ``repro_torch`` namespace
 (``torch.ops.repro_torch.swa_flash``, ``.swa_flash_bwd``,
-``.ssd_intra_chunk``, ``.fused_ce_stats``, ``.fingerprint_u32``), defined
+``.ssd_intra_chunk``, ``.fused_ce_stats``, ``.fused_ce_bwd``,
+``.fingerprint_u32``), defined
 beside its wrapper in its ``ops.py`` by ``kernel_op``, with three
 implementations:
 
@@ -19,8 +20,9 @@ strategy is registered: every caller runs the op on its local shards
 inside ``parallel/constraints.shard_map``.  The ops carry no autograd
 formula; the autograd functions of the ``ops.py`` modules call them
 (``swa_attention``'s calls ``swa_flash`` in its forward and
-``swa_flash_bwd`` in its bf16 backward; ``fused_ce``'s keeps a plain
-backward).
+``swa_flash_bwd`` in its bf16 backward; ``fused_ce``'s two call
+``fused_ce_stats`` in their forward and ``fused_ce_bwd`` in their
+backward, which keeps the plain backward for f32 on every device).
 
 ``COSTS`` maps each op's name to its formula: the work of one call from
 its arguments' shapes.  ``analysis/op_cost.py`` counts it in place of its

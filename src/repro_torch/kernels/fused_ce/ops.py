@@ -1,12 +1,12 @@
 """Public fused-CE op (port of ``repro.kernels.fused_ce.ops``), with its
 gradient.
 
-The forward is the ``repro_torch::fused_ce_stats`` op
-(``kernels/_library.py``): the kernel on CUDA tensors, its plain version on
-CPU tensors, its fake on fake tensors.  The Pallas kernel has no backward
-(JAX differentiates ``chunked_cross_entropy`` through XLA), so the backward
-here is plain torch: it recomputes the logits chunk by chunk from the saved
-``lse``.
+The forward is the ``repro_torch::fused_ce_stats`` op and the backward the
+``repro_torch::fused_ce_bwd`` op (``kernels/_library.py``): each the kernel
+on bf16 CUDA tensors, its plain version on CPU tensors, its fake on fake
+tensors.  The Pallas kernel has no backward (JAX differentiates
+``chunked_cross_entropy`` through XLA); ``fused_ce_bwd`` recomputes the
+logits from the saved ``lse``, and both autograd functions call it.
 """
 from __future__ import annotations
 
@@ -15,14 +15,9 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels._library import KernelCost, kernel_op
-from repro_torch.kernels.fused_ce.ce import fused_ce_stats
-from repro_torch.kernels.fused_ce.ref import fused_ce_stats_ref
-
-# Rows of the logits the backward holds at once.  Beside hidden and its
-# gradient it holds one (rows, V) f32 buffer (the logits, turned into p in
-# place), the head in f32 and the f32 dW: at olmo-1b (V 50304, d 2048)
-# 3 x 412 MB.
-BACKWARD_ROWS = 2048
+from repro_torch.kernels.fused_ce.ce import fused_ce_bwd, fused_ce_stats
+from repro_torch.kernels.fused_ce.ref import (fused_ce_bwd_ref,
+                                              fused_ce_stats_ref)
 
 
 def fused_ce_stats_cost(t: int, d: int, v: int, elsize: int) -> KernelCost:
@@ -30,6 +25,18 @@ def fused_ce_stats_cost(t: int, d: int, v: int, elsize: int) -> KernelCost:
     labels read once and lse, pick (f32) written once; 2 T d V flops."""
     return KernelCost(flops=2 * t * d * v,
                       bytes=elsize * (t * d + d * v) + 4 * t + 8 * t)
+
+
+def fused_ce_bwd_cost(t: int, d: int, v: int, elsize: int,
+                      need_dh: bool = True, need_dw: bool = True
+                      ) -> KernelCost:
+    """The least work of the backward: products of 2 T d V flops, the
+    logits again and each of dh and dW needed; hidden and head
+    (``elsize`` bytes an element) read once, int32 labels and the f32
+    lse, g_lse and g_pick read once, dh and dW written once if needed."""
+    return KernelCost(flops=2 * t * d * v * (1 + need_dh + need_dw),
+                      bytes=elsize * (t * d * (1 + need_dh)
+                                      + d * v * (1 + need_dw)) + 16 * t)
 
 
 def _kernel(hidden, head, labels):
@@ -50,6 +57,45 @@ fused_ce_stats_op = kernel_op(
         *hidden.shape, head.shape[1], hidden.element_size()))
 
 
+def _bwd_kernel(hidden, head, labels, lse, g_lse, g_pick, need_dh=True,
+                need_dw=True):
+    # float32 keeps the plain backward on the card: no configuration trains
+    # in f32 there, and the card's f32 tests hold the gradients at 1e-5,
+    # where p's hi + lo would not
+    bwd = fused_ce_bwd_ref if hidden.dtype == torch.float32 else fused_ce_bwd
+    return bwd(hidden, head, labels, lse, g_lse, g_pick, need_dh, need_dw)
+
+
+def _bwd_fake(hidden, head, labels, lse, g_lse, g_pick, need_dh=True,
+              need_dw=True):
+    return (hidden.new_empty(hidden.shape if need_dh else 0),
+            head.new_empty(head.shape if need_dw else 0))
+
+
+def _bwd_cost(hidden, head, labels, lse, g_lse, g_pick, need_dh=True,
+              need_dw=True):
+    return fused_ce_bwd_cost(*hidden.shape, head.shape[1],
+                             hidden.element_size(), need_dh, need_dw)
+
+
+fused_ce_bwd_op = kernel_op(
+    "fused_ce_bwd",
+    "(Tensor hidden, Tensor head, Tensor labels, Tensor lse, Tensor? g_lse, "
+    "Tensor? g_pick, bool need_dh=True, bool need_dw=True) -> "
+    "(Tensor, Tensor)",
+    cpu=fused_ce_bwd_ref, cuda=_bwd_kernel, fake=_bwd_fake,
+    cost=_bwd_cost)
+
+
+def _grads(ctx, g_lse, g_pick):
+    """(dh, dW, None) of the op, each None where autograd needs none."""
+    hidden, head, labels, lse = ctx.saved_tensors
+    need_h, need_w = ctx.needs_input_grad[:2]
+    dh, dw = fused_ce_bwd_op(hidden, head, labels, lse, g_lse, g_pick,
+                             need_h, need_w)
+    return (dh if need_h else None), (dw if need_w else None), None
+
+
 class _FusedCrossEntropy(torch.autograd.Function):
     @staticmethod
     def forward(ctx, hidden, head, labels):
@@ -63,26 +109,9 @@ class _FusedCrossEntropy(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_loss, _g_count):
-        hidden, head, labels, lse = ctx.saved_tensors
-        need_h, need_w = ctx.needs_input_grad[:2]
-        w = head.float()
-        dh = torch.empty_like(hidden) if need_h else None
-        dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device) \
-            if need_w else None
-        for r0 in range(0, hidden.shape[0], BACKWARD_ROWS):
-            rows = slice(r0, r0 + BACKWARD_ROWS)
-            h = hidden[rows].float()
-            lab = labels[rows].long()
-            # p = (softmax - onehot(label)) * mask * g, in place of the logits
-            p = torch.matmul(h, w).sub_(lse[rows]).exp_()
-            keep = (lab >= 0).float()[:, None]
-            p.scatter_add_(1, lab.clamp(min=0)[:, None], -keep)
-            p.mul_(keep * g_loss)
-            if need_h:
-                dh[rows] = torch.matmul(p, w.T).to(hidden.dtype)
-            if need_w:
-                dw.addmm_(h.T, p)
-        return dh, (dw.to(head.dtype) if need_w else None), None
+        # p = (softmax - onehot(label)) * mask * g
+        g = g_loss * (ctx.saved_tensors[2] >= 0).float()
+        return _grads(ctx, g, -g)
 
 
 class _FusedCEStats(torch.autograd.Function):
@@ -97,32 +126,8 @@ class _FusedCEStats(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_lse, g_pick):
-        hidden, head, labels, lse = ctx.saved_tensors
-        need_h, need_w = ctx.needs_input_grad[:2]
-        w = head.float()
-        dh = torch.empty_like(hidden) if need_h else None
-        dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device) \
-            if need_w else None
-        for r0 in range(0, hidden.shape[0], BACKWARD_ROWS):
-            rows = slice(r0, r0 + BACKWARD_ROWS)
-            h = hidden[rows].float()
-            # p = softmax * g_lse + onehot(label) * g_pick, in place of the
-            # logits
-            p = torch.matmul(h, w).sub_(lse[rows]).exp_()
-            if g_lse is None:
-                p.zero_()
-            else:
-                p.mul_(g_lse[rows, None])
-            if g_pick is not None:
-                lab = labels[rows].long()
-                inside = (lab >= 0) & (lab < w.shape[1])
-                p.scatter_add_(1, torch.where(inside, lab, 0)[:, None],
-                               (g_pick[rows] * inside)[:, None])
-            if need_h:
-                dh[rows] = torch.matmul(p, w.T).to(hidden.dtype)
-            if need_w:
-                dw.addmm_(h.T, p)
-        return dh, (dw.to(head.dtype) if need_w else None), None
+        # p = softmax * g_lse + onehot(label) * g_pick
+        return _grads(ctx, g_lse, g_pick)
 
 
 def fused_ce_shard_stats(hidden: torch.Tensor, head: torch.Tensor,

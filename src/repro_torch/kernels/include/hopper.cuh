@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the port's kernels: mbarriers, TMA tile
 // and bulk loads, `wgmma` shared-memory descriptors, fences and the bf16
-// m64 products of the attention kernels, and the host-side encoding of TMA
-// tensor maps (`swa_flash.cu`, `swa_flash_bwd.cu`, `fused_ce_stats.cu`);
+// m64 products of the attention kernels, the hi + lo split of an f32 pair
+// into bf16, and the host-side encoding of TMA tensor maps (`swa_flash.cu`,
+// `swa_flash_bwd.cu`, `fused_ce_stats.cu`, `fused_ce_bwd.cu`);
 // `cp.async`, `ldmatrix` and `mma.sync` (`ssd_intra_chunk.cu`).  PTX is
 // written inline; nothing here needs CuTe.
 //
@@ -13,6 +14,7 @@
 #include <cstdint>
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace hopper {
@@ -137,6 +139,26 @@ __device__ __forceinline__ void bulk_wait_read() {
 template <int N>
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// bf16 pairs (device)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// x0, x1 as the bf16 pair hi and the bf16 pair lo of their remainders:
+// hi + lo holds about 16 bits of each f32, so a product that takes both
+// terms into one f32 accumulator keeps them (`swa_flash_bwd.cu`,
+// `fused_ce_bwd.cu`).
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h2 = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h2);
+  hi = as_u32(h2);
+  lo = as_u32(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
 }
 
 // ---------------------------------------------------------------------------

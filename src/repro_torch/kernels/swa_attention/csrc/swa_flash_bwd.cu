@@ -136,18 +136,8 @@ struct Layout {
   static constexpr size_t bytes = 1024 + BARS + 8 * (2 * STAGES + 1);
 };
 
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-// x0, x1 as the bf16 pair hi and the bf16 pair lo of their remainders
-__device__ __forceinline__ void split(float x0, float x1, uint32_t& hi,
-                                      uint32_t& lo) {
-  const __nv_bfloat162 h2 = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h2);
-  hi = as_u32(h2);
-  lo = as_u32(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
-}
+using hopper::as_u32;
+using hopper::split_bf16;
 
 __device__ __forceinline__ bool visible(int kj, int qi, int seq, int window) {
   return kj <= qi && qi < seq && (window <= 0 || kj > qi - window);
@@ -362,9 +352,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        split(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1], ph[kk][j], pl[kk][j]);
-        split(dp[8 * kk + 2 * j], dp[8 * kk + 2 * j + 1], sh[kk][j],
-              sl[kk][j]);
+        split_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1], ph[kk][j],
+                   pl[kk][j]);
+        split_bf16(dp[8 * kk + 2 * j], dp[8 * kk + 2 * j + 1], sh[kk][j],
+                   sl[kk][j]);
         const int row = 64 * wg + (j & 1 ? lr1 : lr0);
         const int col = 16 * kk + 8 * (j / 2) + 2 * tc;
         const uint32_t off =

@@ -19,7 +19,7 @@ of the full-size state is allocated.  ``analysis/op_cost.py`` counts the
 ops rank 0 runs, from its local shards (the mesh is symmetric), and the
 bytes live at once.
 
-The models call the five kernels through their ``torch.library`` ops
+The models call the six kernels through their ``torch.library`` ops
 (``kernels/_library.py``), which run their fake implementations on fake
 tensors: the trace holds what each kernel holds on the card (its
 outputs), where the plain versions would hold their whole score matrices,

@@ -20,9 +20,13 @@ from repro_torch.kernels.checksum.fingerprint import (BLOCK_WORDS,
 from repro_torch.kernels.checksum.ops import _as_words, fingerprint
 from repro_torch.kernels.checksum.ref import fingerprint_u32_ref
 from repro_torch.kernels.fused_ce import fused_cross_entropy
-from repro_torch.kernels.fused_ce.ce import fused_ce_stats, tile, vocab_splits
+from repro_torch.kernels.fused_ce.ce import (bwd_launches, fused_ce_bwd,
+                                             fused_ce_bwd_p, fused_ce_stats,
+                                             tile, vocab_block, vocab_splits)
 from repro_torch.kernels.fused_ce.ops import fused_ce_shard_stats
 from repro_torch.kernels.fused_ce.ref import (cross_entropy_ref,
+                                              fused_ce_bwd_p_ref,
+                                              fused_ce_bwd_ref,
                                               fused_ce_stats_ref)
 from repro_torch.kernels.ssd_scan import ssd_chunked
 from repro_torch.kernels.ssd_scan.ref import (ssd_chunked_ref,
@@ -347,16 +351,20 @@ def test_fused_ce_stats_refuses_what_it_cannot_take():
 ])
 def test_fused_cross_entropy_gradients_on_card(dtype, tol):
     """Loss and gradients in hidden and head through the autograd function
-    (the kernel forward, the chunked plain backward) against autograd
-    through the full-logits plain version, on the card."""
+    (the kernel forward; the backward kernel in bf16, the plain backward
+    in f32) against autograd through the full-logits plain version, on the
+    card."""
     dev = _card()
     h, w, lab = _ce_inputs(dev, 2 * 2048 + 72, 256, 1000, dtype, seed=1)
     emb = w.T.detach().float().requires_grad_()
     hh = h.detach().requires_grad_()
-    before = fused_ce_stats.launches
+    before, before_bwd = fused_ce_stats.launches, fused_ce_bwd.launches
     loss, count = fused_cross_entropy(hh, emb.T.to(dtype), lab)
     loss.backward()
     assert fused_ce_stats.launches == before + 1
+    assert fused_ce_bwd.launches == before_bwd + (
+        bwd_launches(h.shape[0], w.shape[1]) if dtype == torch.bfloat16
+        else 0)
     emb2 = w.T.detach().float().requires_grad_()
     hh2 = h.detach().requires_grad_()
     want, want_count = cross_entropy_ref(hh2, emb2.T.to(dtype), lab)
@@ -367,6 +375,77 @@ def test_fused_cross_entropy_gradients_on_card(dtype, tol):
         scale = ref.float().abs().max()
         torch.testing.assert_close(got.float() / scale, ref.float() / scale,
                                    rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,d,v,tied,form", [
+    (300, 256, 777, False, "loss"),     # ragged; the head copied for TMA
+    (300, 256, 777, True, "stats"),
+    (1000, 64, 2048, True, "lse only"),
+    (4168, 256, 1000, False, "pick only"),
+    (16384, 2048, 50304, True, "loss"),  # olmo-1b's training call
+])
+def test_fused_ce_bwd_matches_plain_on_card(t, d, v, tied, form):
+    """dh and dW of the kernel path against the plain f32 backward: a
+    relative Frobenius gap of at most 2^-8 (p enters the products as bf16
+    hi + lo, about 2^-16, and both outputs round once to bf16, 2^-9); and
+    against the plain backward's outputs in bf16, at most 2^-11.  The last
+    vocabulary block's p, hi + lo, against the plain f32 p: a median
+    relative error of its entries of at most 2^-14, which hi alone (2^-9
+    of each entry) misses; zeros where p is 0 and past V.
+    One launch counted a vocabulary block; an untied head with V no
+    multiple of 8 copied once."""
+    dev = _card()
+    h, w, lab = _ce_inputs(dev, t, d, v, torch.bfloat16, tied=tied)
+    lse, _ = fused_ce_stats_ref(h, w, lab.clamp(min=0))
+    gen = torch.Generator(device=dev).manual_seed(t)
+    g = (lab >= 0).float() / t
+    g_lse, g_pick = {"loss": (g, -g),
+                     "stats": (torch.randn(t, generator=gen, device=dev),
+                               torch.randn(t, generator=gen, device=dev)),
+                     "lse only": (g, None), "pick only": (None, g)}[form]
+    before, copies = fused_ce_bwd.launches, fused_ce_bwd.copies
+    dh, dw = fused_ce_bwd(h, w, lab, lse, g_lse, g_pick)
+    torch.cuda.synchronize()
+    assert fused_ce_bwd.launches == before + bwd_launches(t, v)
+    assert fused_ce_bwd.copies - copies == int(not tied and v % 8 != 0)
+    assert (dh.shape, dh.dtype, dw.shape, dw.dtype) == (
+        (t, d), torch.bfloat16, (d, v), torch.bfloat16)
+    want = fused_ce_bwd_ref(h.float(), w.float(), lab, lse, g_lse, g_pick)
+    for got, ref in zip((dh, dw), want):
+        assert ((got.float() - ref).norm() / ref.norm()).item() <= 2 ** -8
+        ref = ref.to(torch.bfloat16).float()
+        assert ((got.float() - ref).norm() / ref.norm()).item() <= 2 ** -11
+    v0 = (bwd_launches(t, v) - 1) * vocab_block(t, v, tile(torch.bfloat16)[1])
+    hi, lo = fused_ce_bwd_p(h, w, lab, lse, g_lse, g_pick, v0,
+                            v - v0).float().unbind(1)
+    p = fused_ce_bwd_p_ref(h, w[:, v0:], lab - v0, lse, g_lse, g_pick)
+    nz = p != 0
+    err = [((x[:, :v - v0] - p).abs()[nz] / p.abs()[nz]).median()
+           for x in (hi + lo, hi)]
+    assert err[0] <= 2 ** -14 < err[1]
+    assert not (hi + lo)[:, :v - v0][~nz].any()
+    assert not hi[:, v - v0:].any() and not lo[:, v - v0:].any()
+    if t < 16384:
+        # an output not needed is not computed; the other is unchanged
+        dh_only = fused_ce_bwd(h, w, lab, lse, g_lse, g_pick, need_dw=False)
+        dw_only = fused_ce_bwd(h, w, lab, lse, g_lse, g_pick, need_dh=False)
+        assert torch.equal(dh_only[0], dh) and dh_only[1].numel() == 0
+        assert torch.equal(dw_only[1], dw) and dw_only[0].numel() == 0
+
+
+@pytest.mark.cuda
+def test_fused_ce_bwd_refuses_what_it_cannot_take():
+    dev = _card()
+    h, w, lab = _ce_inputs(dev, 64, 64, 100, torch.float32)
+    lse = torch.zeros(64, 1, device=dev)
+    with pytest.raises(ValueError, match="both bfloat16"):
+        fused_ce_bwd(h, w, lab, lse, None, None)
+    hb, wb = h.to(torch.bfloat16), w.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="lse"):
+        fused_ce_bwd(hb, wb, lab, lse[:, 0], None, None)
+    with pytest.raises(ValueError, match="g_pick"):
+        fused_ce_bwd(hb, wb, lab, lse, None, lse)
 
 
 @pytest.mark.cuda

@@ -1,13 +1,14 @@
-"""The five kernels as ``torch.library`` ops (``repro_torch/kernels/
+"""The six kernels as ``torch.library`` ops (``repro_torch/kernels/
 _library.py``) on the CPU, where no kernel runs: the CPU implementation is
 the plain version and the fake one gives the kernel's output metadata.
 
 - ``torch.library.opcheck`` of each op on CPU inputs (schema, fake
   tensors); each fake output's shape, dtype and strides equal to the CPU
   implementation's;
-- each op's formula: ``fused_ce_stats``'s FLOPs equal to what ``OpCost``
-  counts for its plain version; ``ssd_intra_chunk``'s equal to that less
-  the two masked Q x Q products' upper triangle, which the plain version
+- each op's formula: ``fused_ce_stats``'s and ``fused_ce_bwd``'s FLOPs
+  equal to what ``OpCost`` counts for their plain versions;
+  ``ssd_intra_chunk``'s equal to that less the two masked Q x Q products'
+  upper triangle, which the plain version
   computes and the kernel does not; ``swa_flash`` at 4 D pairs B H and
   ``swa_flash_bwd`` at 10 D pairs B H with the exact causal (windowed)
   pairs; the bounds ``chip_smoke.py`` prints equal to its formulas before
@@ -33,7 +34,8 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.kernels._library import COSTS
 from repro_torch.kernels.checksum import ops as fp_ops
 from repro_torch.kernels.fused_ce import ops as ce_ops
-from repro_torch.kernels.fused_ce.ref import fused_ce_stats_ref
+from repro_torch.kernels.fused_ce.ref import (fused_ce_bwd_ref,
+                                              fused_ce_stats_ref)
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
 from repro_torch.kernels.swa_attention import ops as swa_ops
@@ -74,11 +76,17 @@ def _inputs(name):
     if name == "fused_ce_stats":
         labels = torch.from_numpy(rng.integers(-1, 40, 10))
         return randn(10, 32), 0.02 * randn(32, 40), labels
+    if name == "fused_ce_bwd":
+        labels = torch.from_numpy(rng.integers(-1, 40, 10))
+        hidden, head = randn(10, 32), 0.02 * randn(32, 40)
+        lse, _ = fused_ce_stats_ref(hidden, head, labels)
+        return (hidden.to(torch.bfloat16), head.to(torch.bfloat16), labels,
+                lse, randn(10), None)
     return (fp_ops._flat_words(randn(1000)),)
 
 
 OPS = ["swa_flash", "swa_flash_bwd", "ssd_intra_chunk", "fused_ce_stats",
-       "fingerprint_u32"]
+       "fingerprint_u32", "fused_ce_bwd"]
 
 
 def _op(name):
@@ -128,9 +136,8 @@ def test_cuda_implementation_has_no_fallback(name):
     version."""
     module = {"swa_flash": swa_ops, "swa_flash_bwd": swa_ops,
               "ssd_intra_chunk": ssd_ops, "fused_ce_stats": ce_ops,
-              "fingerprint_u32": fp_ops}[name]
-    kernel = swa_ops._bwd_kernel if name == "swa_flash_bwd" else \
-        module._kernel
+              "fingerprint_u32": fp_ops, "fused_ce_bwd": ce_ops}[name]
+    kernel = module._bwd_kernel if name.endswith("_bwd") else module._kernel
     with pytest.raises(ValueError, match="CUDA"):
         kernel(*_inputs(name))
 
@@ -148,6 +155,18 @@ def test_ce_formula_equals_plain_count():
     want = ce_ops.fused_ce_stats_cost(t, d, v, 4)
     assert _counted(fused_ce_stats_ref, *args).cost.flops == want.flops
     assert _counted(_op("fused_ce_stats"), *args).cost.flops == want.flops
+
+
+def test_ce_bwd_formula_equals_plain_count():
+    """Three products of 2 T d V: the logits again, dh and dW, as the plain
+    backward runs them."""
+    args = _inputs("fused_ce_bwd")
+    t, d = args[0].shape
+    v = args[1].shape[1]
+    want = ce_ops.fused_ce_bwd_cost(t, d, v, 2)
+    assert want.flops == 3 * 2 * t * d * v
+    assert _counted(fused_ce_bwd_ref, *args).cost.flops == want.flops
+    assert _counted(_op("fused_ce_bwd"), *args).cost.flops == want.flops
 
 
 def test_ssd_formula_equals_plain_count():

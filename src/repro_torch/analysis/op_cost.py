@@ -197,7 +197,9 @@ class OpCost(TorchDispatchMode):
             lhs = args[_MATMULS[name]]
             self.cost.flops += 2.0 * outs[0].numel() * lhs.shape[-1]
         if not func.is_view:
-            ins = [t for t in tree_leaves((args, kwargs))
+            # an ``out=`` tensor is written, not read: counted with outs
+            ins = [t for t in tree_leaves(
+                       (args, {k: v for k, v in kwargs.items() if k != "out"}))
                    if isinstance(t, torch.Tensor)]
             moved = float(sum(_nbytes(t) for t in ins + outs))
             self.cost.bytes += moved

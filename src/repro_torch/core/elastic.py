@@ -17,10 +17,10 @@ step scans over them.  The sharded step over a ``DeviceMesh`` is the same
 ``build_train_step`` on DTensors (``parallel/``); the card runs see one
 device.
 
-``donate=True`` runs the donated step (``training/step.py``): the state is
-updated in place, 16 bytes a parameter where the functional step holds 28
-at its update.  JAX's runtime does not donate, so the functional step
-stays the default.
+``donate=True`` runs the donated step (``training/step.py``): the same
+update writes the state in place, 16 bytes a parameter where the
+functional step, which writes a new state, holds 28 at its update.  JAX's
+runtime does not donate, so the functional step stays the default.
 """
 from __future__ import annotations
 

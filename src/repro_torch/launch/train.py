@@ -23,8 +23,9 @@ families dense (olmo-1b and the other dense configs), moe
 the seed) and VLM (``--arch llama-3.2-vision-11b``, its image embeddings
 likewise; at full width its f32 weights and AdamW moments do not fit one
 80 GB card).
-``--donate`` updates the state in place (JAX's ``donate_argnums``): 16
-bytes a parameter where the functional update holds 28, so that
+``--donate`` writes the update into the state itself (JAX's
+``donate_argnums``) and not into a new one: 16 bytes a parameter where the
+functional step holds 28, so that
 granite-moe-3b-a800m trains at all 32 layers on one 80 GB card
 (``--arch granite-moe-3b-a800m --full --donate``).  ``--layers N`` cuts
 the depth.  ``--ckpt-every N``
@@ -61,7 +62,7 @@ def main(argv=None) -> None:
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--donate", action="store_true",
-                    help="update the state in place (16 bytes a parameter)")
+                    help="update the state itself (16 bytes a parameter)")
     ap.add_argument("--resize", action="append", default=[],
                     help="step:new_physical (repeatable)")
     ap.add_argument("--device", default="cuda",

@@ -1,16 +1,12 @@
 """AdamW over parameter trees (port of ``repro.optim.adamw``).
 
-``adamw_update`` makes new tensors for the parameters and both moments, as
-the JAX function returns new arrays; its intermediates are updated in
-place, one leaf at a time, so the transient memory is a few copies of the
-largest leaf.  ``adamw_update_`` is the donated form (JAX's
-``donate_argnums`` on the state): it writes the parameters and moments in
-place and consumes the gradients, in the same arithmetic order, so its
-results equal ``adamw_update``'s to the bit (its docstring says where the
-gradient norm is summed in another order); it works on axis-0 slices of
-at most ``UPDATE_CHUNK`` elements (one layer of a stacked leaf at least),
-so its transient memory is one such slice.  JAX's AdamW is plain jnp, not
-a Pallas kernel; so is this.
+One arithmetic, ``_adamw_update_into``, written into new tensors by
+``adamw_update`` (JAX's function: its inputs are left as they were) or
+into the state itself by ``adamw_update_``, the donated form (JAX's
+``donate_argnums``: the gradients are consumed).  It sums the gradient
+norm and updates on axis-0 slices of at most ``UPDATE_CHUNK`` elements, so
+both forms give the same bits and hold a slice or two beside their
+results.  JAX's AdamW is plain jnp, not a Pallas kernel; so is this.
 """
 from __future__ import annotations
 
@@ -21,9 +17,9 @@ import torch
 from repro_torch.configs.base import TrainConfig
 from repro_torch.parallel.constraints import is_dtensor
 
-# elements of a leaf the in-place update takes at once (64 MiB of f32); a
-# leaf is cut along axis 0 into slices of at most this many elements, or
-# of one row (one layer of a stacked leaf) where a row is larger
+# elements of a leaf the update takes at once (64 MiB of f32); a leaf is
+# cut along axis 0 into slices of at most this many elements, or of one
+# row (one layer of a stacked leaf) where a row is larger
 UPDATE_CHUNK = 1 << 24
 from repro_torch.utils.tree import tree_leaves, tree_map
 
@@ -42,33 +38,6 @@ def global_norm(tree: Any) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32."""
     return torch.sqrt(sum(torch.sum(torch.square(leaf.float()))
                           for leaf in tree_leaves(tree)))
-
-
-def adamw_update(params: Any, grads: Any, opt_state: Dict, lr,
-                 cfg: TrainConfig) -> Tuple[Any, Dict]:
-    """One AdamW step: grads clipped by their pre-clip global norm, bias
-    correction on the incremented count, weight decay on every leaf, new
-    params cast back to each param's dtype.  Returns (params, opt_state)."""
-    count = opt_state["count"] + 1
-    gnorm = global_norm(grads)
-    clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
-    b1, b2, eps = cfg.beta1, cfg.beta2, cfg.eps
-    bc1 = 1.0 - b1 ** count.float()
-    bc2 = 1.0 - b2 ** count.float()
-
-    def upd(p, g, m, v):
-        g = g.float() * clip
-        m = (m * b1).add_(g, alpha=1 - b1)
-        v = (v * b2).addcmul_(g, g, value=1 - b2)
-        step = (m / bc1).div_((v / bc2).sqrt_().add_(eps))
-        pf = p.float()
-        new_p = pf - step.add_(pf, alpha=cfg.weight_decay).mul_(lr)
-        return new_p.to(p.dtype), m, v
-
-    new = tree_map(upd, params, grads, opt_state["m"], opt_state["v"])
-    return (tree_map(lambda t: t[0], new),
-            {"m": tree_map(lambda t: t[1], new),
-             "v": tree_map(lambda t: t[2], new), "count": count})
 
 
 def _row_slices(t: torch.Tensor):
@@ -90,39 +59,68 @@ def _square_sum(g: torch.Tensor) -> torch.Tensor:
     return parts[0] if len(parts) == 1 else sum(parts)
 
 
-def adamw_update_(params: Any, grads: Any, opt_state: Dict, lr,
-                  cfg: TrainConfig) -> torch.Tensor:
-    """``adamw_update`` in place: params, ``opt_state``'s m, v and count are
-    written where they are, and ``grads`` is consumed (scaled by the clip in
-    place).  Returns the gradients' pre-clip global norm, which is
-    ``global_norm``'s to the bit where every leaf is one slice (every
-    leaf of at most ``UPDATE_CHUNK`` elements) and within f32 rounding
-    elsewhere: a leaf's squares are summed slice by slice, so that no
-    temporary is larger than a slice."""
-    count = opt_state["count"].add_(1)
+def _adamw_update_into(params: Any, grads: Any, opt_state: Dict, lr,
+                       cfg: TrainConfig, new_params: Any,
+                       new_opt: Dict) -> torch.Tensor:
+    """One AdamW step from ``params``, ``grads`` and ``opt_state`` into
+    ``new_params`` and ``new_opt``, trees of their structure: grads clipped
+    by their pre-clip global norm, bias correction on the incremented
+    count, weight decay on every leaf, the new params in their
+    destinations' dtypes.  The destinations are either all the sources
+    (``new_params is params`` and ``new_opt is opt_state``: updated in
+    place, the gradients consumed as scratch) or all new tensors; a mix
+    would consume the gradients of the leaves written in place and of
+    those alone.  Returns the pre-clip norm, ``global_norm``'s to the bit
+    where every leaf is one slice and within f32 rounding elsewhere
+    (summed slice by slice)."""
+    count = torch.add(opt_state["count"], 1, out=new_opt["count"])
     gnorm = torch.sqrt(sum(_square_sum(g) for g in tree_leaves(grads)))
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     b1, b2, eps = cfg.beta1, cfg.beta2, cfg.eps
     bc1 = 1.0 - b1 ** count.float()
     bc2 = 1.0 - b2 ** count.float()
 
-    def upd(p, g, m, v):
-        g = g.mul_(clip) if g.dtype == torch.float32 else g.float() * clip
-        m.mul_(b1).add_(g, alpha=1 - b1)
-        v.mul_(b2).addcmul_(g, g, value=1 - b2)
-        # m / bc1 into the spent gradient: one temporary slice, not two (a
-        # DTensor's gradient may be placed otherwise than m: a new one)
+    def upd(p, g, m, v, new_p, new_m, new_v, in_place):
+        g = g.mul_(clip) if in_place and g.dtype == torch.float32 \
+            else g.float() * clip
+        m = torch.mul(m, b1, out=new_m).add_(g, alpha=1 - b1)
+        v = torch.mul(v, b2, out=new_v).addcmul_(g, g, value=1 - b2)
+        # m / bc1 into the scaled gradient, spent from here: one temporary
+        # slice, not two (a DTensor's gradient may be placed otherwise
+        # than m: a new one)
         step = m / bc1 if is_dtensor(m) else torch.div(m, bc1, out=g)
         step.div_((v / bc2).sqrt_().add_(eps))
-        if p.dtype == torch.float32:
-            p.sub_(step.add_(p, alpha=cfg.weight_decay).mul_(lr))
-        else:
-            pf = p.float()
-            p.copy_(pf - step.add_(pf, alpha=cfg.weight_decay).mul_(lr))
+        pf = p.float()
+        # rounded to new_p's dtype as it is stored
+        torch.sub(pf, step.add_(pf, alpha=cfg.weight_decay).mul_(lr),
+                  out=new_p)
 
-    def leaf(p, g, m, v):
+    def leaf(p, g, m, v, new_p, new_m, new_v):
         for rows in _row_slices(p):
-            upd(p[rows], g[rows], m[rows], v[rows])
+            upd(*(t[rows] for t in (p, g, m, v, new_p, new_m, new_v)),
+                in_place=new_p is p)
 
-    tree_map(leaf, params, grads, opt_state["m"], opt_state["v"])
+    tree_map(leaf, params, grads, opt_state["m"], opt_state["v"],
+             new_params, new_opt["m"], new_opt["v"])
     return gnorm
+
+
+def adamw_update(params: Any, grads: Any, opt_state: Dict, lr,
+                 cfg: TrainConfig) -> Tuple[Any, Dict]:
+    """``_adamw_update_into`` new tensors (each param's dtype kept): returns
+    (params, opt_state) and leaves ``params``, ``grads`` and ``opt_state``
+    as they were."""
+    new_params = tree_map(torch.empty_like, params)
+    new_opt = tree_map(torch.empty_like, opt_state)
+    _adamw_update_into(params, grads, opt_state, lr, cfg, new_params,
+                       new_opt)
+    return new_params, new_opt
+
+
+def adamw_update_(params: Any, grads: Any, opt_state: Dict, lr,
+                  cfg: TrainConfig) -> torch.Tensor:
+    """``adamw_update`` in place: params, ``opt_state``'s m, v and count are
+    written where they are, and ``grads`` is consumed.  Returns the
+    gradients' pre-clip global norm (``_adamw_update_into``)."""
+    return _adamw_update_into(params, grads, opt_state, lr, cfg, params,
+                              opt_state)

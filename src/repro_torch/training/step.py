@@ -20,12 +20,13 @@ Each slice's backward adds into one f32 gradient sum as it goes
 model._unstack``).  ``donate=True`` is JAX's ``donate_argnums`` on the
 state: the step writes the parameters, moments, count and step in place
 and consumes the state passed in, and the update frees the gradient sum
-before the step returns.  So a donated step holds 16 bytes a parameter
-(f32 params, m, v and the gradient sum) beside one layer's gradient and
-the activations, where the functional one holds 28 at its update
-(granite-moe-3b-a800m at 32 layers, batch 4 x 4096, on an H100 80GB:
-54.1 GB of state and gradient sum, peaks 62.9 GB at splice 1 and 62.1 GB
-at splice 2, 18.4–18.7 bytes a parameter).  Under
+before the step returns; without it they go into new tensors.  Both run
+one update, ``optim/adamw.py::_adamw_update_into``.  So a donated step
+holds 16 bytes a parameter (f32 params, m, v and the gradient sum) beside
+one layer's gradient and the activations, where the functional one holds
+28 at its update, the old state and the new (granite-moe-3b-a800m at 32
+layers, batch 4 x 4096 at splice 1, donated, on an H100 80GB: a peak of
+54.368 GiB in the benchmark's granite-moe-train-s1 cell).  Under
 a mesh (``parallel/constraints.use_mesh``) the same step runs on DTensor
 params and batch.
 """
@@ -39,10 +40,10 @@ from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.barrier_step import meta_allreduce
 from repro_torch.parallel.constraints import current_mesh
 from repro_torch.models.model import check_trainable, model_forward
-from repro_torch.optim.adamw import adamw_update, adamw_update_, global_norm
+from repro_torch.optim.adamw import _adamw_update_into
 from repro_torch.optim.schedule import lr_schedule
 from repro_torch.utils.spans import span
-from repro_torch.utils.tree import tree_leaves, tree_unflatten
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 
 def loss_and_grads(params: Dict, batch: Dict, cfg: ModelConfig,
@@ -98,18 +99,13 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, splice: int = 1,
                                      splice)
         with span("step.update"):
             lr = lr_schedule(state["step"], tcfg)
-            if donate:
-                gnorm = adamw_update_(state["params"], grads, state["opt"],
-                                      lr, tcfg)
-                del grads
-                state["step"].add_(1)
-                new_state = state
-            else:
-                new_params, new_opt = adamw_update(state["params"], grads,
-                                                   state["opt"], lr, tcfg)
-                gnorm = global_norm(grads)
-                new_state = {"params": new_params, "opt": new_opt,
-                             "step": state["step"] + 1}
+            new_state = state if donate else tree_map(torch.empty_like,
+                                                      state)
+            gnorm = _adamw_update_into(state["params"], grads, state["opt"],
+                                       lr, tcfg, new_state["params"],
+                                       new_state["opt"])
+            del grads
+            torch.add(state["step"], 1, out=new_state["step"])
         metrics = {"loss": loss, "lr": lr, "grad_norm": gnorm}
         if with_barrier:
             if barrier_flags is None:

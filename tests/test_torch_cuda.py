@@ -967,13 +967,19 @@ def test_donated_granite_step_on_card():
 
 
 @pytest.mark.cuda
-def test_donated_update_transient_memory_on_card():
-    """One donated update: the peak above what was allocated before it is
-    under two axis-0 slices of the largest leaf (a (32, 40, 1536, 512)
-    expert stack's layer, 126 MB), where the functional update makes a new
-    params, m and v (three such leaves, 12 GB)."""
-    from repro_torch.optim.adamw import adamw_init, adamw_update_
-    from repro_torch.utils.tree import tree_map
+@pytest.mark.parametrize("donated", [True, False],
+                         ids=["donated", "functional"])
+def test_donated_update_transient_memory_on_card(donated):
+    """One AdamW update of a (32, 40, 1536, 512) expert stack and an
+    embedding: its peak above what was allocated before it, less the new
+    params, m and v it returns (12 bytes a parameter, none in place), is
+    under two axis-0 slices of the largest leaf (one layer, 126 MB) in
+    place, where m / bc1 goes into the spent gradient, and under three
+    into new tensors, where g * clip and v / bc2 each hold a slice (a
+    whole leaf's temporary would be 4 GB)."""
+    from repro_torch.optim.adamw import (adamw_init, adamw_update,
+                                         adamw_update_)
+    from repro_torch.utils.tree import tree_leaves, tree_map
 
     card = _card()
     gen = torch.Generator(device=card).manual_seed(0)
@@ -986,10 +992,20 @@ def test_donated_update_transient_memory_on_card():
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    adamw_update_(params, grads, opt, 1e-3, TrainConfig())
+    if donated:
+        adamw_update_(params, grads, opt, 1e-3, TrainConfig())
+        made = 0
+    else:
+        new_p, new_opt = adamw_update(params, grads, opt, 1e-3,
+                                      TrainConfig())
+        made = sum(t.numel() * t.element_size()
+                   for t in tree_leaves({"p": new_p, "opt": new_opt})
+                   if t.ndim)
+        assert made == 12 * sum(p.numel() for p in params.values())
     torch.cuda.synchronize()
-    transient = torch.cuda.max_memory_allocated() - before
-    assert transient < 2 * params["wi"][0].numel() * 4, transient
+    transient = torch.cuda.max_memory_allocated() - before - made
+    slices = 2 if donated else 3
+    assert transient < slices * params["wi"][0].numel() * 4, transient
 
 
 @pytest.mark.cuda

@@ -2,7 +2,8 @@
 functional one, on the CPU at smoke size: ``optim/adamw.py::adamw_update_``
 and ``build_train_step(..., donate=True)`` write the state in place and must
 give the functional results to the bit.  No JAX here: the functional step
-is the one the other parity files hold against JAX.
+is the one the other parity files hold against JAX (its update on whole
+leaves and on slices, ``tests/test_torch_train.py``).
 """
 import dataclasses
 
@@ -86,37 +87,59 @@ def test_step_consumes_the_state():
     assert _leaves_equal(train_state_to_numpy(out), train_state_to_numpy(new))
 
 
-def test_update_in_slices(monkeypatch):
+@pytest.mark.parametrize("grad_scale", [1e-3, 1.0],
+                         ids=["unclipped", "clipped"])
+def test_update_in_slices(monkeypatch, grad_scale):
     """Leaves cut into several axis-0 slices (``UPDATE_CHUNK`` of 100
-    elements): params, m and v equal the functional update's to the bit
-    while the clip is off (the norm under ``grad_clip``), and the returned
-    norm equals ``global_norm``'s to 1e-6 relative (its squares are summed
-    slice by slice, in another order)."""
-    monkeypatch.setattr(adamw, "UPDATE_CHUNK", 100)
+    elements), the clip off (the norm under ``grad_clip``) and on: the
+    donated and the functional update give the same params, m, v and
+    count to the bit; the update of whole leaves (``UPDATE_CHUNK`` at its
+    default, the form held against JAX) gives the same params, m and v,
+    to the bit without the clip and within f32 rounding of the clip
+    factor with it (the sliced norm sums the squares in another order,
+    and equals ``global_norm``'s to 1e-6 relative).  The functional
+    update leaves its params, grads and opt_state as they were."""
     gen = torch.Generator().manual_seed(3)
     params = {"stack": torch.randn(6, 10, 30, generator=gen),
               "embed": torch.randn(50, 16, generator=gen),
               "norm": torch.randn(16, generator=gen)}
-    grads = tree_map(lambda p: 1e-3 * torch.randn(p.shape, generator=gen),
+    grads = tree_map(lambda p: grad_scale * torch.randn(p.shape,
+                                                        generator=gen),
                      params)
     cfg = dataclasses.replace(TCFG, grad_clip=1.0)
-    assert float(global_norm(grads)) < cfg.grad_clip
+    want_norm = float(global_norm(grads))
+    assert (want_norm > cfg.grad_clip) == (grad_scale == 1.0)
     opt = adamw_init(params)
     opt["m"] = tree_map(lambda p: 1e-2 * torch.randn(p.shape, generator=gen),
                         params)
     opt["v"] = tree_map(lambda p: 1e-4 * torch.rand(p.shape, generator=gen),
                         params)
+    assert all(len(adamw._row_slices(p)) == 1 for p in params.values())
+    whole_p, whole_opt = adamw_update(params, grads, opt, 1e-3, cfg)
+
+    monkeypatch.setattr(adamw, "UPDATE_CHUNK", 100)
+    assert len(adamw._row_slices(params["stack"])) == 6
+    assert len(adamw._row_slices(params["embed"])) == 9
+    inputs = tree_map(torch.clone, {"p": params, "g": grads, "opt": opt})
     new_p, new_opt = adamw_update(params, grads, opt, 1e-3, cfg)
-    want_norm = float(global_norm(grads))
+    assert _leaves_equal(
+        train_state_to_numpy({"p": params, "g": grads, "opt": opt}),
+        train_state_to_numpy(inputs))
     p2, opt2 = tree_map(torch.clone, params), tree_map(torch.clone, opt)
     norm = adamw_update_(p2, tree_map(torch.clone, grads), opt2, 1e-3, cfg)
-    assert len(adamw._row_slices(p2["stack"])) == 6
-    assert len(adamw._row_slices(p2["embed"])) == 9
-    for a, b in ((p2, new_p), (opt2["m"], new_opt["m"]),
-                 (opt2["v"], new_opt["v"])):
-        assert _leaves_equal(train_state_to_numpy(a), train_state_to_numpy(b))
+    sliced = {"p": new_p, "m": new_opt["m"], "v": new_opt["v"]}
+    assert _leaves_equal(train_state_to_numpy({"p": p2, **opt2}),
+                         train_state_to_numpy({"p": new_p, **new_opt}))
     assert int(opt2["count"]) == int(new_opt["count"]) == 1
     np.testing.assert_allclose(float(norm), want_norm, rtol=1e-6)
+    whole = {"p": whole_p, "m": whole_opt["m"], "v": whole_opt["v"]}
+    if grad_scale < 1.0:
+        assert _leaves_equal(train_state_to_numpy(sliced),
+                             train_state_to_numpy(whole))
+    else:
+        for got, want in zip(tree_leaves(sliced), tree_leaves(whole)):
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                                       atol=1e-9)
 
 
 def test_snapshot_is_a_copy():

@@ -155,6 +155,17 @@ def test_per_device_counts():
     assert _matmul_flops((2, 2), rows_only) == one / 2
 
 
+def test_out_tensor_is_written_not_read():
+    """An ``out=`` overload moves the bytes of its functional form: its
+    ``out`` tensor is counted once, as written, and not also as read."""
+    a, b, c = torch.ones(64), torch.ones(64), torch.empty(64)
+    with OpCost() as functional:
+        a + b
+    with OpCost() as into:
+        torch.add(a, b, out=c)
+    assert into.cost.bytes == functional.cost.bytes == 3 * 64 * 4
+
+
 def test_flops_match_jax_one_device():
     """The olmo smoke train step at batch 2 x 512 on one device, remat on:
     the port's count is JAX's ``analyze_hlo`` count plus exactly two

@@ -38,6 +38,7 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.data import DataPipeline
 from repro_torch.launch import train as train_cli
 from repro_torch.models import model_forward
+from repro_torch.optim import adamw as adamw_module
 from repro_torch.optim import adamw_init, adamw_update, lr_schedule
 from repro_torch.optim.adamw import global_norm
 from repro_torch.training import build_train_step, init_train_state
@@ -201,10 +202,19 @@ def _random_tree(rng):
                   "d": (3 * rng.standard_normal((2, 2))).astype(np.float32)}}
 
 
-@pytest.mark.parametrize("seed,grad_scale", [(0, 1.0), (1, 0.05)])
-def test_adamw_update_matches_jax(seed, grad_scale):
+@pytest.mark.parametrize("seed,grad_scale,chunk", [
+    (0, 1.0, None), (1, 0.05, None), (0, 1.0, 4), (1, 0.05, 4)],
+    ids=["0-1.0", "1-0.05", "0-1.0-sliced", "1-0.05-sliced"])
+def test_adamw_update_matches_jax(monkeypatch, seed, grad_scale, chunk):
     """Three updates on a random tree with a None leaf; grad_scale 1 clips
-    (global norm > grad_clip 1.0), 0.05 does not."""
+    (global norm > grad_clip 1.0), 0.05 does not.  ``sliced``: every leaf
+    of more than one row cut into axis-0 slices (``UPDATE_CHUNK`` of 4
+    elements, as a full-width leaf is cut at 16M), the norm summed and the
+    update run slice by slice."""
+    if chunk is not None:
+        monkeypatch.setattr(adamw_module, "UPDATE_CHUNK", chunk)
+        assert len(adamw_module._row_slices(torch.zeros(3, 4))) == 3
+        assert len(adamw_module._row_slices(torch.zeros(5))) == 2
     rng = np.random.default_rng(seed)
     tcfg = TrainConfig(**TCFG)
     jtcfg = JaxTrainConfig(**TCFG)
